@@ -1,0 +1,105 @@
+"""Host-side test-time image preprocessing without cv2 (counterpart of the
+inference parts of ``genre_shapehd_tpu/data/preprocess.py``).
+
+Resizing runs ``torch.nn.functional.interpolate`` in float64 on the CPU
+with ``align_corners=False`` and no antialiasing: bicubic (A = -0.75) for
+:func:`resize`, bilinear for :func:`crop` -- the kernels, border handling
+and output-size rounding of ``cv2.resize`` with ``INTER_CUBIC`` /
+``INTER_LINEAR``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .png import read_png
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def imread_rgb(path: str) -> np.ndarray:
+    """RGB in [0, 1] (float64); an alpha channel is dropped, a grayscale
+    file stays (H, W)."""
+    im = read_png(path)
+    if im.ndim == 3:
+        im = im[..., :3]
+    return im.astype(np.float64) / 255.0
+
+
+def imread_gray(path: str) -> np.ndarray:
+    """Grayscale in [0, 1] (float64); colour files are converted with the
+    ITU-R 601 weights 0.299, 0.587, 0.114."""
+    im = read_png(path)
+    if im.ndim == 3:
+        rgb = im[..., :3].astype(np.float64)
+        im = np.round(rgb @ np.array([0.299, 0.587, 0.114]))
+    return im.astype(np.float64) / 255.0
+
+
+def _interpolate(im: np.ndarray, size: Tuple[int, int],
+                 mode: str) -> np.ndarray:
+    t = torch.from_numpy(np.ascontiguousarray(im, np.float64))
+    t = t[None, None] if t.dim() == 2 else t.permute(2, 0, 1)[None]
+    out = F.interpolate(t, size=size, mode=mode, align_corners=False)[0]
+    out = out[0] if im.ndim == 2 else out.permute(1, 2, 0)
+    return out.numpy()
+
+
+def resize(im: np.ndarray, target_size: int,
+           clamp: Optional[Tuple[float, float]] = None) -> np.ndarray:
+    """Aspect-preserving bicubic resize to width ``target_size``; the
+    height is rounded to nearest."""
+    h, w = im.shape[:2]
+    scale = target_size / w
+    out = _interpolate(im, (int(round(h * scale)), int(round(w * scale))),
+                       "bicubic")
+    if clamp is not None:
+        out = np.clip(out, clamp[0], clamp[1])
+    return out
+
+
+def normalize_colors(rgb01: np.ndarray) -> np.ndarray:
+    return (rgb01 - np.asarray(IMAGENET_MEAN)) / np.asarray(IMAGENET_STD)
+
+
+def binarize(im: np.ndarray, thres: float) -> np.ndarray:
+    return (im > thres).astype(im.dtype if im.dtype.kind == "f"
+                               else np.float64)
+
+
+def get_bbox(mask01: np.ndarray, th: float = 0.95):
+    """[tl_w, tl_h, br_w, br_h] of mask > th."""
+    m = mask01[..., 0] if mask01.ndim == 3 else mask01
+    indh, indw = np.where(m > th)
+    if indh.size == 0:
+        raise ValueError("empty mask -- no pixels above threshold")
+    return [int(indw.min()), int(indh.min()), int(indw.max()), int(indh.max())]
+
+
+def crop(img: np.ndarray, bbox, out_size: int, pad: int,
+         pad_zero: bool = True) -> np.ndarray:
+    """Square crop centred on the bbox, scaled so the object spans
+    (out_size - 2*pad) pixels, padded at the borders, bilinear-resized to
+    out_size x out_size."""
+    y1, x1, y2, x2 = bbox
+    h, w = img.shape[0], img.shape[1]
+    x_mid, y_mid = (x1 + x2) / 2.0, (y1 + y2) / 2.0
+    side = max(x2 - x1, y2 - y1) * out_size / (out_size - 2.0 * pad)
+    x1 = int(np.round(x_mid - side / 2.0))
+    x2 = int(np.round(x_mid + side / 2.0))
+    y1 = int(np.round(y_mid - side / 2.0))
+    y2 = int(np.round(y_mid + side / 2.0))
+    b_x = max(0, -x1); x1 = max(0, x1)
+    b_y = max(0, -y1); y1 = max(0, y1)
+    a_x = max(0, x2 - (h - 1)); x2 = min(x2, h - 1)
+    a_y = max(0, y2 - (w - 1)); y2 = min(y2, w - 1)
+    style = ({"mode": "constant", "constant_values": 0} if pad_zero
+             else {"mode": "edge"})
+    pads = ((b_x, a_x), (b_y, a_y)) + (((0, 0),) if img.ndim == 3 else ())
+    img_crop = np.pad(img[x1:x2 + 1, y1:y2 + 1], pads, **style)
+    return _interpolate(img_crop, (out_size, out_size), "bilinear")

@@ -1,0 +1,53 @@
+"""Test-time machinery: checkpoint load, photo cropping, per-batch .npz
+output (counterpart of ``genre_shapehd_tpu/models/test_base.py``; its
+visualizer is not ported yet)."""
+
+from __future__ import annotations
+
+import os
+from os.path import join
+from typing import Dict
+
+import numpy as np
+
+from ..core.checkpoint import load_net
+from ..data import preprocess as pp
+
+CROP_SILHOU_THRES = 0.95
+CROP_IN_SIZE = 480
+CROP_PAD = 85
+
+
+def _to_numpy(t) -> np.ndarray:
+    """Device tensor -> host float32 array (bfloat16 promoted)."""
+    return t.detach().float().cpu().numpy()
+
+
+class TestMixin:
+    """Mixin over a Model providing the test-time contract."""
+
+    def init_test(self, opt):
+        self.output_dir = opt.output_dir
+
+    def load_net_file(self, net_file: str) -> None:
+        self.load_weights(*load_net(net_file))
+
+    def preprocess_wrapper(self, in_dict: Dict) -> Dict:
+        """Crop photo and mask by the mask's bbox so framing matches
+        renders; GenRe keeps the cropped silhouette as a network input."""
+        bbox = pp.get_bbox(in_dict["silhou"], th=CROP_SILHOU_THRES)
+        for key in ("rgb", "silhou"):
+            in_dict[key] = pp.crop(in_dict[key], bbox, CROP_IN_SIZE, CROP_PAD,
+                                   pad_zero=False)
+        return self.preprocess(in_dict)
+
+    def test_on_batch(self, batch_i: int, batch: Dict) -> Dict:
+        """Predict one batch and write ``<output_dir>/batch%04d.npz``."""
+        outdir = join(self.output_dir, f"batch{batch_i:04d}")
+        os.makedirs(outdir, exist_ok=True)
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        pred = {k: _to_numpy(v) for k, v in self.predict_step(arrays).items()}
+        output = self.pack_output(pred, batch)
+        np.savez(outdir + ".npz",
+                 **{k: v for k, v in output.items() if v is not None})
+        return output

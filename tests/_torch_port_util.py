@@ -1,0 +1,68 @@
+"""Shared inputs for the PyTorch port's parity tests (tests/test_torch_port_*).
+
+Seeded numpy inputs feed both the JAX package and the port.  Random
+weights put net1's depth and net2's spherical map far outside the unit
+cube, which would leave both backprojections empty; :func:`calibrate`
+rescales three output layers so that the geometry between the nets sees
+many points inside the cube.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: the reduced scale of tests/test_e2e_fixtures.py::tiny_opt
+TINY = dict(im_size=64, vox_res=32, sph_res=32, z_res=32, padding_margin=16)
+
+
+def scene_inputs(n: int, size: int, seed: int):
+    """(rgb (n,size,size,3) ~ N(0,1), silhou (n,size,size,1) in {0,100})
+    with a disc-shaped silhouette per sample."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.standard_normal((n, size, size, 3)).astype(np.float32)
+    yy, xx = np.mgrid[:size, :size]
+    sil = np.zeros((n, size, size, 1), np.float32)
+    for i in range(n):
+        cy, cx = rng.uniform(0.4, 0.6, 2) * size
+        r = rng.uniform(0.25, 0.35) * size
+        sil[i, ..., 0] = (((yy - cy) ** 2 + (xx - cx) ** 2) < r * r) * 100.0
+    return rgb, sil
+
+
+def _get(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def calibrate(params, batch_stats, rgb, sil, cfg=TINY):
+    """Copies of the JAX-layout trees with (1) the min/max head fixed to
+    (1.2, 2.2), (2) net1's depth decoder scaled to output std 30 and (3)
+    net2's spherical decoder scaled to output std 1, measured with the
+    port's GenreNet on ``rgb``/``sil``."""
+    from genre_shapehd_tpu_torch.core.convert import jax_to_torch
+    from genre_shapehd_tpu_torch.models.genre_full import GenreNet
+
+    params = _copy(params)
+    net1 = "depth_and_inpaint/net1/"
+    head = _get(params, net1 + "MinmaxHead_0/Dense_2")
+    head["kernel"] = np.zeros_like(head["kernel"])
+    head["bias"] = np.array([1.2, 2.2], np.float32)
+    net = GenreNet(**cfg).eval()
+    for path, key, target in (
+            (net1 + "decoder_depth/Deconv_1/ConvTranspose_0", "depth", 30.0),
+            ("depth_and_inpaint/net2/decoder_spherical/Deconv_1/"
+             "ConvTranspose_0", "pred_sph_full", 1.0)):
+        net.load_state_dict(jax_to_torch(params, batch_stats))
+        with torch.no_grad():
+            out = net(torch.from_numpy(rgb), torch.from_numpy(sil))
+        layer = _get(params, path)
+        layer["kernel"] = layer["kernel"] * np.float32(
+            target / float(out[key].std()))
+    return params, batch_stats
+
+
+def _copy(tree):
+    return {k: _copy(v) if isinstance(v, dict) else np.array(v)
+            for k, v in tree.items()}
