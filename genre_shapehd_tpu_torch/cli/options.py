@@ -21,6 +21,10 @@ def parse_test(argv=None) -> argparse.Namespace:
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--workers", type=int, default=4,
                    help="data-loading worker threads")
+    p.add_argument("--vis_workers", type=int, default=4,
+                   help="visualizer threads (0: write synchronously)")
+    p.add_argument("--vis_param_f", type=str, default=None,
+                   help='JSON file {"voxel": {"isosurf_thres": x}}')
     p.add_argument("--im_size", type=int, default=256)
     p.add_argument("--vox_res", type=int, default=128)
     p.add_argument("--sph_res", type=int, default=128)

@@ -6,7 +6,8 @@
       --output_dir output/test --overwrite --dtype bfloat16 --device cuda
 
 Writes one ``batch%04d.npz`` per batch (pred_voxel, pred_proj_depth,
-pred_proj_sph_full, rgb_path).
+pred_proj_sph_full, rgb_path) and, under ``batch%04d/``, a copy of each
+photo and the iso-surface meshes (.obj) of the three voxel grids.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ def main(argv=None) -> int:
     for i, batch in enumerate(loader):
         model.test_on_batch(i, batch)
         print(f"[test] batch {i + 1}/{len(loader)} done")
+    model.visualizer.close()             # meshes and images are on disk
     return 0
 
 

@@ -1,5 +1,6 @@
-"""Host-side test-time image preprocessing without cv2 (counterpart of the
-inference parts of ``genre_shapehd_tpu/data/preprocess.py``).
+"""Host-side test-time image reading, writing and preprocessing without
+cv2 (counterpart of the inference parts of
+``genre_shapehd_tpu/data/preprocess.py``).
 
 Resizing runs ``torch.nn.functional.interpolate`` in float64 on the CPU
 with ``align_corners=False`` and no antialiasing: bicubic (A = -0.75) for
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .png import read_png
+from .png import read_png, write_png
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -39,6 +40,15 @@ def imread_gray(path: str) -> np.ndarray:
         rgb = im[..., :3].astype(np.float64)
         im = np.round(rgb @ np.array([0.299, 0.587, 0.114]))
     return im.astype(np.float64) / 255.0
+
+
+def imwrite_rgb(path: str, im01: np.ndarray) -> None:
+    """Write an image in [0, 1], (H, W) or (H, W, 3), as an 8-bit PNG
+    (values truncated, as ``astype(uint8)`` does)."""
+    im = np.clip(im01, 0.0, 1.0)
+    if im.ndim == 3 and im.shape[2] == 1:
+        im = im[..., 0]
+    write_png(path, (im * 255).astype(np.uint8))
 
 
 def _interpolate(im: np.ndarray, size: Tuple[int, int],

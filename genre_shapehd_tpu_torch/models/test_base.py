@@ -1,6 +1,6 @@
-"""Test-time machinery: checkpoint load, photo cropping, per-batch .npz
-output (counterpart of ``genre_shapehd_tpu/models/test_base.py``; its
-visualizer is not ported yet)."""
+"""Test-time machinery: checkpoint load, photo cropping, per-batch
+visualization and .npz output (counterpart of
+``genre_shapehd_tpu/models/test_base.py``)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import numpy as np
 
 from ..core.checkpoint import load_net
 from ..data import preprocess as pp
+from ..viz.visualizer import Visualizer
 
 CROP_SILHOU_THRES = 0.95
 CROP_IN_SIZE = 480
@@ -28,6 +29,9 @@ class TestMixin:
 
     def init_test(self, opt):
         self.output_dir = opt.output_dir
+        self.visualizer = Visualizer(
+            n_workers=getattr(opt, "vis_workers", 4),
+            param_f=getattr(opt, "vis_param_f", None))
 
     def load_net_file(self, net_file: str) -> None:
         self.load_weights(*load_net(net_file))
@@ -42,12 +46,15 @@ class TestMixin:
         return self.preprocess(in_dict)
 
     def test_on_batch(self, batch_i: int, batch: Dict) -> Dict:
-        """Predict one batch and write ``<output_dir>/batch%04d.npz``."""
+        """Predict one batch, hand it to the visualizer (meshes and images
+        under ``<output_dir>/batch%04d/``) and write
+        ``<output_dir>/batch%04d.npz``."""
         outdir = join(self.output_dir, f"batch{batch_i:04d}")
         os.makedirs(outdir, exist_ok=True)
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         pred = {k: _to_numpy(v) for k, v in self.predict_step(arrays).items()}
         output = self.pack_output(pred, batch)
+        self.visualizer.visualize(output, batch_i, outdir)
         np.savez(outdir + ".npz",
                  **{k: v for k, v in output.items() if v is not None})
         return output

@@ -1,0 +1,153 @@
+"""The final deconv of the 3D U-Net as one CUDA kernel, its plain version
+and launch count (counterpart of
+``genre_shapehd_tpu/ops/pallas/subpixel_kernel.py``).
+
+  K3 ``deconv_final`` (csrc/deconv_final_kernel.cu) computes the whole of
+     the JAX package's ``deconv_final_fused`` -- the phase conv that XLA
+     runs there and the phase assembly of the Pallas ``_final_tail_kernel``:
+     ``ConvTranspose3d(Cin -> 1, k=4, s=2, p=1)`` plus bias,
+     x (B, Cin, S, S, S) -> (B, 1, 2S, 2S, 2S), float32 or bfloat16.
+
+:func:`deconv_final` launches the kernel on CUDA tensors and runs the
+plain version (:func:`deconv_final_plain`, ``F.conv_transpose3d``) on CPU
+tensors.  A CUDA tensor either launches the kernel or raises.
+
+The kernel is outside autocast's reach, so the wrapper does what autocast
+would: with autocast on for the tensor's device the compute dtype is the
+autocast dtype, else the input's; x and the weight are rounded to it.  The
+kernel accumulates in float32, adds the float32 bias and rounds once to
+the compute dtype, half a bfloat16 step from the float32 result.  The
+plain version in bfloat16 rounds more than once inside the library (the
+sum, the bias, their sum), so the two differ by up to two bfloat16 steps
+of the output.
+
+The gradient differentiates the plain version (the JAX package has no
+backward kernel either: ``_df_bwd`` differentiates ``_final_ref_xla``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+SOURCE = "deconv_final_kernel.cu"
+
+#: launches of the kernel since the last :func:`reset_launches`
+launches: Dict[str, int] = {"deconv_final": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def deconv_final_plain(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor) -> torch.Tensor:
+    """x (B, Cin, S, S, S), weight (Cin, 1, 4, 4, 4), bias (1,) ->
+    (B, 1, 2S, 2S, 2S); parameters are cast to x's dtype unless autocast
+    does it."""
+    if not torch.is_autocast_enabled(x.device.type):
+        weight, bias = weight.to(x.dtype), bias.to(x.dtype)
+    return F.conv_transpose3d(x, weight, bias, stride=2, padding=1)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = build.load(SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.deconv_final.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.deconv_final.restype = i
+        _lib = lib
+    return _lib
+
+
+def _check_args(x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor) -> None:
+    if x.dim() != 5 or not x.shape[2] == x.shape[3] == x.shape[4]:
+        raise ValueError(f"deconv_final: x must be (B, Cin, S, S, S), got "
+                         f"{tuple(x.shape)}")
+    if tuple(weight.shape) != (x.shape[1], 1, 4, 4, 4):
+        raise ValueError(f"deconv_final: weight must be ({x.shape[1]}, 1, 4, "
+                         f"4, 4), got {tuple(weight.shape)}")
+    if tuple(bias.shape) != (1,):
+        raise ValueError(f"deconv_final: bias must be (1,), got "
+                         f"{tuple(bias.shape)}")
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+    """x already in the compute dtype; weight, bias float32; all CUDA."""
+    x = x.contiguous()                   # NCDHW; a channels-last x is copied
+    w = weight.reshape(x.shape[1], 64).contiguous()
+    b = bias.contiguous()
+    bsz, cin, s = x.shape[0], x.shape[1], x.shape[2]
+    out = torch.empty((bsz, 1, 2 * s, 2 * s, 2 * s), dtype=x.dtype,
+                      device=x.device)
+    lib = _library()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())          # noqa: E731
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.deconv_final(ptr(x), ptr(w), ptr(b), ptr(out),
+                               _DTYPE_CODE[x.dtype], bsz, cin, s,
+                               ctypes.c_void_p(stream))
+        launches["deconv_final"] += 1
+    if err != 0:
+        raise RuntimeError(f"deconv_final: CUDA error {err} at launch")
+    return out
+
+
+class _DeconvFinal(torch.autograd.Function):
+    """Forward: K3.  Backward: the gradient of the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight, bias)
+        return _launch(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
+            x, weight, bias = (t.detach().requires_grad_(True) for t in saved)
+            out = F.conv_transpose3d(x, weight.to(x.dtype), bias.to(x.dtype),
+                                     stride=2, padding=1)
+            grads = torch.autograd.grad(
+                out, [t for t, need in zip((x, weight, bias),
+                                           ctx.needs_input_grad) if need],
+                grad.to(out.dtype))
+        it = iter(grads)
+        return tuple(next(it) if need else None
+                     for need in ctx.needs_input_grad)
+
+
+def deconv_final(x: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """``ConvTranspose3d(Cin -> 1, k=4, s=2, p=1)(x)`` with the layer's
+    parameters as ``nn.ConvTranspose3d`` holds them: K3 on CUDA tensors,
+    the plain version on CPU tensors."""
+    _check_args(x, weight, bias)
+    if x.device.type == "cpu":
+        return deconv_final_plain(x, weight, bias)
+    if x.device.type != "cuda" or weight.device != x.device \
+            or bias.device != x.device:
+        raise RuntimeError(
+            f"deconv_final: x on {x.device}, weight on {weight.device}, bias "
+            f"on {bias.device}; the kernel runs on one CUDA device and its "
+            "plain version on the CPU only")
+    dtype = (torch.get_autocast_dtype("cuda")
+             if torch.is_autocast_enabled("cuda") else x.dtype)
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"deconv_final takes float32 or bfloat16, not {dtype}")
+    # the weight is rounded to the compute dtype like x, then handed to
+    # the kernel as float32; the bias stays float32
+    return _DeconvFinal.apply(x.to(dtype), weight.to(dtype).float(),
+                              bias.float())

@@ -66,3 +66,13 @@ def calibrate(params, batch_stats, rgb, sil, cfg=TINY):
 def _copy(tree):
     return {k: _copy(v) if isinstance(v, dict) else np.array(v)
             for k, v in tree.items()}
+
+
+def flax_kernel_to_wcat(kernel: np.ndarray) -> np.ndarray:
+    """Flax ConvTranspose kernel (4, 4, 4, Cin, 1) -> the phase-stacked
+    ``wcat`` (2, 2, 2, Cin, 8) that ``deconv_final_fused`` takes, built as
+    ``SubpixelTConv3D`` builds it: phase (a, b, c) holds the taps
+    ``kernel[a::2, b::2, c::2]``, phases concatenated on the last axis."""
+    phases = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
+    return np.concatenate([kernel[a::2, b::2, c::2] for a, b, c in phases],
+                          axis=-1)

@@ -191,6 +191,23 @@ def test_cli_matches_jax_test_on_batch(tmp_path):
         hits += int((ref["pred_proj_depth"] > 2e-4).sum())
     assert hits > 200, hits      # the camera backprojection saw points
 
+    # the visualizer: the same files as the JAX package's, every mesh a
+    # parsable .obj, every photo copied
+    for batch, n_items in (("batch0000", 2), ("batch0001", 1)):
+        files = sorted(os.listdir(os.path.join(port_out, batch)))
+        assert files == sorted(os.listdir(os.path.join(jax_out, batch)))
+        assert len(files) == 4 * n_items, files
+        for f in files:
+            path = os.path.join(port_out, batch, f)
+            if f.endswith(".obj"):
+                lines = open(path).read().splitlines()
+                assert lines and all(
+                    ln[:2] in ("v ", "f ") and len(ln.split()) == 4
+                    for ln in lines), path
+            else:
+                assert f.endswith("_00_rgb.png"), f
+                assert png.read_png(path).shape[2] == 3
+
 
 def test_port_imports_no_jax(tmp_path):
     """Importing every port module, and reading a JAX checkpoint whose
@@ -216,12 +233,17 @@ def test_port_imports_no_jax(tmp_path):
         "m.startswith('genre_shapehd_tpu.'))\n"
         "n = sum(m.startswith('genre_shapehd_tpu_torch.') "
         "for m in sys.modules)\n"
+        "for m in ('viz.visualizer', 'viz.mcubes', 'cli.eval_chamfer', "
+        "'ops.chamfer', 'ops.cuda.chamfer_kernel', "
+        "'ops.cuda.subpixel_kernel'):\n"
+        "    assert 'genre_shapehd_tpu_torch.' + m in sys.modules, m\n"
         "print(n, bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 25, res.stdout
+    # every module, the viz and eval_chamfer ones of the scoring path too
+    assert int(res.stdout.split()[0]) >= 40, res.stdout
 
 
 def test_cli_cuda_without_a_card_raises(tmp_path):

@@ -1,15 +1,20 @@
-"""PyTorch port, CUDA kernels K1 (render_stage1) and K2
-(render_stage2_scan) against their plain versions on the card.  Skipped
-where ``torch.cuda.is_available()`` is false.
+"""PyTorch port, CUDA kernels K1 (render_stage1), K2 (render_stage2_scan),
+K3 (deconv_final) and K4 (nn_min_dist) against their plain versions on the
+card.  Skipped where ``torch.cuda.is_available()`` is false.
 
-On a machine with a GPU and nvcc:  python -m pytest -m cuda tests/
+On a machine with a GPU and nvcc:
+  python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
 import numpy as np
 import pytest
 import torch
 
+from genre_shapehd_tpu_torch.nn.voxel_nets import Deconv3D
+from genre_shapehd_tpu_torch.ops import chamfer
+from genre_shapehd_tpu_torch.ops.cuda import chamfer_kernel as ck
 from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
 
 pytestmark = pytest.mark.cuda
 
@@ -63,3 +68,113 @@ def test_cuda_tensor_never_falls_back(device):
     with pytest.raises(ValueError):
         rk.stage2(torch.zeros(1, 32, 64, 32, device=device), 32, 32, 1024,
                   64, torch.float32)
+
+
+@pytest.mark.parametrize("dtype,b,cin,s", [
+    ("float32", 2, 12, 16), ("float32", 1, 3, 5), ("bfloat16", 2, 40, 16),
+    ("bfloat16", 1, 7, 9)])
+def test_deconv_final_matches_plain(device, dtype, b, cin, s):
+    cd = getattr(torch, dtype)
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(rng.standard_normal((b, cin, s, s, s)).astype(
+        np.float32)).to(device, cd)
+    w = torch.from_numpy((rng.standard_normal((cin, 1, 4, 4, 4)) * 0.2)
+                         .astype(np.float32)).to(device)
+    bias = torch.tensor([0.3], device=device)
+    sk.reset_launches()
+    out = sk.deconv_final(x, w, bias)
+    torch.cuda.synchronize()
+    assert sk.launches == {"deconv_final": 1}
+    assert out.shape == (b, 1, 2 * s, 2 * s, 2 * s) and out.dtype == cd
+    ref = sk.deconv_final_plain(x, w, bias).float()
+    scale = float(ref.abs().max())
+    d = (out.float() - ref).abs()
+    if dtype == "float32":
+        # summation order only
+        assert d.max() <= 1e-5 * scale, (d.max(), scale)
+    else:
+        # one bf16 rounding of the output (the plain version also rounds
+        # the bias)
+        assert d.max() <= 1e-2 * scale and d.mean() <= 1e-3 * scale
+
+
+def test_deconv_final_layer_autocast_grad_and_layouts(device):
+    """Through the layer: under autocast the kernel computes in bfloat16
+    from float32 parameters; a channels-last input is accepted; the
+    backward is the plain version's."""
+    layer = Deconv3D(6, 1, 4, 2, 1).to(device)
+    x = torch.randn(2, 6, 8, 8, 8, device=device,
+                    generator=torch.Generator(device).manual_seed(0))
+    sk.reset_launches()
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        out = layer(x)
+    assert out.dtype == torch.bfloat16 and sk.launches["deconv_final"] == 1
+    with torch.no_grad():
+        ref = layer.ConvTranspose_0(x)
+    assert (out.float() - ref).abs().max() <= 2e-2 * float(ref.abs().max())
+    cl = x.to(memory_format=torch.channels_last_3d)
+    with torch.no_grad():
+        assert (layer(cl) - ref).abs().max() <= 1e-5 * float(ref.abs().max())
+    xg = x.clone().requires_grad_()
+    layer(xg).square().sum().backward()
+    g_kernel = xg.grad.clone()
+    gw_kernel = layer.ConvTranspose_0.weight.grad.clone()
+    layer.zero_grad()
+    xr = x.clone().requires_grad_()
+    layer.ConvTranspose_0(xr).square().sum().backward()
+    scale = float(xr.grad.abs().max())
+    assert (g_kernel - xr.grad).abs().max() <= 1e-4 * scale
+    gw = layer.ConvTranspose_0.weight.grad
+    assert (gw_kernel - gw).abs().max() <= 1e-4 * float(gw.abs().max())
+    with pytest.raises(TypeError):
+        sk.deconv_final(x.half(), layer.ConvTranspose_0.weight,
+                        layer.ConvTranspose_0.bias)
+    with pytest.raises(RuntimeError):
+        sk.deconv_final(x, layer.ConvTranspose_0.weight.cpu(),
+                        layer.ConvTranspose_0.bias)
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 700, 1200), (1, 513, 511),
+                                   (3, 1, 2500), (1, 1024, 1024)])
+def test_nn_min_dist_matches_plain(device, b, n, m):
+    rng = np.random.default_rng(n)
+    x1 = torch.from_numpy(rng.standard_normal((b, n, 3)).astype(
+        np.float32)).to(device)
+    x2 = torch.from_numpy(rng.standard_normal((b, m, 3)).astype(
+        np.float32)).to(device)
+    ck.reset_launches()
+    d1, d2, i1, i2 = chamfer.nndistance_w_idx(x1, x2)
+    torch.cuda.synchronize()
+    assert ck.launches == {"nn_min_dist": 1}
+    r1, r2, _, _ = ck.nn_min_dist_plain(x1, x2)
+    # tests/test_pallas_chamfer.py's bounds
+    torch.testing.assert_close(d1, r1, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(d2, r2, rtol=1e-4, atol=1e-5)
+    # indices through the distances they give (ties may differ)
+    assert i1.dtype == torch.int32 and int(i1.max()) < m and int(i2.max()) < n
+    nn1 = torch.gather(x2, 1, i1.long()[..., None].expand(-1, -1, 3))
+    nn2 = torch.gather(x1, 1, i2.long()[..., None].expand(-1, -1, 3))
+    torch.testing.assert_close(((x1 - nn1) ** 2).sum(-1), d1, rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(((x2 - nn2) ** 2).sum(-1), d2, rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_nn_min_dist_gradient_and_degenerate_clouds(device):
+    rng = np.random.default_rng(2)
+    x1 = torch.from_numpy(rng.standard_normal((1, 40, 3)).astype(np.float32))
+    x2 = torch.from_numpy(rng.standard_normal((1, 60, 3)).astype(np.float32))
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        a = x1.to(dev).requires_grad_()
+        b = x2.to(dev).requires_grad_()
+        d1, d2 = chamfer.nndistance(a, b)
+        (d1.sum() + 0.5 * d2.sum()).backward()
+        grads.append((a.grad.cpu(), b.grad.cpu()))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    z = torch.zeros(1, 1024, 3, device=device)
+    s = chamfer.nndistance_score(z, z)
+    assert torch.isfinite(s).all() and float(s[0]) < 1e-9
+    with pytest.raises(RuntimeError):
+        chamfer.nndistance(x1.to(device), x2)
