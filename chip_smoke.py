@@ -30,7 +30,18 @@ raising on failure:
     then recon/s of the batch-8 bfloat16 forward, and a torch.profiler
     pass over 3 forwards: device time per stage (the ``genre.*`` spans of
     the model), the hand-written and the top kernels, and the device's
-    idle share.
+    idle share;
+ 6. the training path: K5 (``render_stage2_samples``) against its plain
+    version at the forward's batch-8 and the training's batch-4 shapes,
+    bfloat16, and in float32 at a smaller size; the renderer's gradient
+    on the card (K1, K2 forward; K1, K5 and the transpose backward)
+    against the CPU's, float32, reduced size; then
+    ``genre_shapehd_tpu_torch.cli.train`` at 256² -> 128³, bfloat16,
+    batch 4, on the synthetic data, in stage 3 and with --joint_train:
+    finite losses, the refine net moved, net1 and net2 only when joint,
+    the launch counts per step, a checkpoint that ``cli.test`` reads, the
+    step time and peak memory, and a torch.profiler pass over one step of
+    each kind.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Scratch files go to build/chip_smoke/ under the repository.
@@ -57,11 +68,13 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12         # bfloat16 tensor cores, dense
 DEC6 = dict(b=8, cin=40, s=64)   # dec6 of the 3D U-Net at 128³, nf 20
+TRAIN = dict(batch=4, steps=8)   # cli.train: batch, steps of each kind
 SOURCES = {
     "render_stage1": "genre_shapehd_tpu_torch/csrc/render_kernel.cu",
     "render_stage2_scan": "genre_shapehd_tpu_torch/csrc/render_kernel.cu",
     "deconv_final": "genre_shapehd_tpu_torch/csrc/deconv_final_kernel.cu",
     "nn_min_dist": "genre_shapehd_tpu_torch/csrc/chamfer_kernel.cu",
+    "render_stage2_samples": "genre_shapehd_tpu_torch/csrc/render_kernel.cu",
 }
 REPLACES = {
     "render_stage1": "genre_shapehd_tpu/ops/pallas/render_kernel.py:170 "
@@ -73,6 +86,9 @@ REPLACES = {
                     ":113)",
     "nn_min_dist": "genre_shapehd_tpu/ops/pallas/chamfer_kernel.py:36 "
                    "(_min_dist_kernel)",
+    "render_stage2_samples": "genre_shapehd_tpu/ops/pallas/render_kernel.py"
+                             ":312 (_s2_kernel via _s2_call :366, "
+                             "pallas_call :373)",
 }
 
 
@@ -137,7 +153,8 @@ def phase_kernels(device):
     c = rk.stage1(vox, v, r, z, m, bf)
     out = rk.stage2(c, v, r, z, m, bf)
     torch.cuda.synchronize()
-    check(rk.launches == {"render_stage1": 1, "render_stage2_scan": 1},
+    check(rk.launches == {"render_stage1": 1, "render_stage2_scan": 1,
+                          "render_stage2_samples": 0},
           f"kernel launches {rk.launches}")
     c_ref = rk.stage1_plain(vox, v, r, z, m, bf)
     out_ref = rk.stage2_plain(c, v, r, z, m, bf)
@@ -432,7 +449,7 @@ def phase_main_path(device, work):
             f"voxels hit {hits}, sph-bp voxels hit "
             f"{int((out['pred_proj_sph_full'] != 0).sum())}")
     check(launches == {"render_stage1": 2, "render_stage2_scan": 2,
-                       "deconv_final": 2},
+                       "render_stage2_samples": 0, "deconv_final": 2},
           f"launches in the main path {launches} != one per forward")
     tris = check_visualizer_output(out_dir, photos, n_batches=2, batch=8)
     log(f"[main] visualizer: 16 photo copies, 48 .obj meshes parsed; "
@@ -620,6 +637,59 @@ def _device_us(evt, self_only=False):
     return evt.self_device_time_total if self_only else evt.device_time_total
 
 
+def device_profile(prof, n, wall_ms, own_names):
+    """From a profile of ``n`` runs: device ms per ``genre.*`` span
+    (kernels launched under its CPU side, and its length on the device's
+    timeline), kernel time per run, the hand-written kernels by name and
+    the top kernels; logs them with the idle share against
+    ``wall_ms``."""
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    # kernels: device events that are not user annotations (the spans)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy = sum(_device_us(e, True) for e in kernels) / n / 1e3
+    # per stage: kernel time launched under the CPU-side span, and the
+    # length of the span on the device's timeline (kernels + gaps)
+    stages = {}
+    for e in events:
+        if e.key.startswith("genre."):
+            on_device = e.device_type == DeviceType.CUDA
+            val = _device_us(e, on_device) / n / 1e3
+            stages.setdefault(e.key, {})[
+                "span" if on_device else "kernels"] = round(val, 3)
+    log(f"[profile] per run, ms by stage: {json.dumps(stages)}")
+    log(f"[profile] kernel time {busy:.2f} ms per run (profiled) vs "
+        f"{wall_ms:.2f} ms unprofiled wall: device idle share "
+        f"{max(0.0, 1 - busy / wall_ms):.3f}")
+    own = {e.key.split("<")[0].split("::")[-1]:
+           round(_device_us(e, True) / n / 1e3, 4) for e in kernels
+           if any(k in e.key for k in own_names)}
+    log(f"[profile] hand-written kernels per run, ms (launched through "
+        f"ctypes, so no span's kernel column holds them): "
+        f"{json.dumps(own)}")
+    # the backward runs on autograd's device thread, outside the spans:
+    # its kernels by the backward function that launched them
+    backward = {e.key.split(": ")[-1]: _device_us(e) / n / 1e3
+                for e in events if e.device_type == DeviceType.CPU
+                and e.key.startswith("autograd::engine::evaluate_function")}
+    if backward:
+        total = sum(backward.values())
+        top = sorted(backward.items(), key=lambda kv: -kv[1])[:10]
+        log(f"[profile] backward kernels {total:.2f} ms per run (without "
+            f"the ctypes kernels), by function: "
+            f"{json.dumps({k: round(v, 3) for k, v in top})}")
+    top = sorted(kernels, key=lambda e: -_device_us(e, True))[:12]
+    for e in top:
+        log(f"[profile] {_device_us(e, True) / n / 1e3:8.3f} ms "
+            f"x{e.count // n:<4d} {e.key[:110]}")
+    return stages, busy, own
+
+
+OWN_KERNELS = ("stage1_kernel", "stage2_scan_kernel", "stage2_samples_kernel",
+               "deconv_final_kernel")
+
+
 def phase_throughput(device, ckpt):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -662,37 +732,247 @@ def phase_throughput(device, ckpt):
         for _ in range(n):
             fwd()
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-    events = prof.key_averages()
-    # kernels: device events that are not user annotations (the spans)
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    busy = sum(_device_us(e, True) for e in kernels) / n / 1e3
-    # per stage: kernel time launched under the CPU-side span, and the
-    # length of the span on the device's timeline (kernels + gaps)
-    stages = {}
-    for e in events:
-        if e.key.startswith("genre."):
-            on_device = e.device_type == DeviceType.CUDA
-            val = _device_us(e, on_device) / n / 1e3
-            stages.setdefault(e.key, {})[
-                "span" if on_device else "kernels"] = round(val, 3)
-    log(f"[profile] per forward, ms by stage: {json.dumps(stages)}")
-    log(f"[profile] kernel time {busy:.2f} ms per forward (profiled) vs "
-        f"{ms:.2f} ms unprofiled wall: device idle share "
-        f"{max(0.0, 1 - busy / ms):.3f}")
-    own = {e.key.split("<")[0].split("::")[-1]:
-           round(_device_us(e, True) / n / 1e3, 4) for e in kernels
-           if any(k in e.key for k in ("stage1_kernel", "stage2_scan_kernel",
-                                       "deconv_final_kernel"))}
-    log(f"[profile] hand-written kernels per forward, ms (launched "
-        f"through ctypes, so no span's kernel column holds them): "
-        f"{json.dumps(own)}")
-    top = sorted(kernels, key=lambda e: -_device_us(e, True))[:12]
-    for e in top:
-        log(f"[profile] {_device_us(e, True) / n / 1e3:8.3f} ms "
-            f"x{e.count // n:<4d} {e.key[:110]}")
+    device_profile(prof, n, ms, OWN_KERNELS)
     return ms
+
+
+def phase_stage2_samples(device, flush):
+    """K5 against its plain version at the forward's batch-8 and the
+    training's batch-4 bf16 shapes, and in float32 at a smaller size;
+    timed at batch 4, the shape the training path gives it."""
+    import torch
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    v, r, z, m = (MAIN[k] for k in "vrzm")
+    bf = torch.bfloat16
+    worst = (0.0, 0.0)
+    for b in (MAIN["b"], TRAIN["batch"]):
+        c = rk.stage1(volume(b, v, 5 + b, device), v, r, z, m, bf)
+        rk.reset_launches()
+        out = rk.stage2_samples(c, v, r, z, m, bf)
+        torch.cuda.synchronize()
+        check(rk.launches["render_stage2_samples"] == 1,
+              f"K5 launches {rk.launches}")
+        check(out.shape == (b, r, r, z) and out.dtype == torch.float32,
+              f"K5 output {tuple(out.shape)} {out.dtype}")
+        d = (out - rk.stage2_samples_plain(c, v, r, z, m, bf)).abs()
+        err = (float(d.max()), float(d.mean()))
+        # K2's bounds (tests/test_pallas_render.py): the plain version
+        # rounds t2 = sum_z c*wz to bf16, the kernel does not
+        check(err[0] < 3e-2 and err[1] < 2e-3, f"K5 vs plain at batch {b}: "
+              f"{err}")
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+        del out, d
+    # float32 at a smaller size: summation order only
+    a = (64, 64, 128, 96, torch.float32)
+    c32 = rk.stage1(volume(2, 64, 6, device), *a)
+    e32 = float((rk.stage2_samples(c32, *a)
+                 - rk.stage2_samples_plain(c32, *a)).abs().max())
+    check(e32 < 1e-5, f"f32 K5 {e32}")
+    log(f"[kernels] K5 render_stage2_samples bf16 at batch {MAIN['b']} and "
+        f"{TRAIN['batch']}: max/mean abs err vs plain {worst[0]:.3g}/"
+        f"{worst[1]:.3g}; f32 (2, 64^3 -> 64^2 x 128) max err {e32:.3g}")
+    b = TRAIN["batch"]
+    ms = time_ms(lambda: rk.stage2_samples(c, v, r, z, m, bf), flush)
+    plain_ms = time_ms(lambda: rk.stage2_samples_plain(c, v, r, z, m, bf),
+                       flush)
+    # bytes: c read once, the float32 samples written once, the z / m tap
+    # tables; per sample 6 multiply-adds of the taps
+    bnd = bound(c.numel() * 2 + b * r * r * z * 4 + r * z * (4 + 8) * 2,
+                12.0 * b * r * r * z)
+    return worst, ms, plain_ms, bnd
+
+
+def phase_render_grad(device):
+    """The renderer's gradient on the card (forward K1, K2; backward K1,
+    K5 and the transpose) against the CPU's plain path, float32, at a
+    reduced size; the bfloat16 gradient at the main shapes is finite."""
+    import torch
+    from genre_shapehd_tpu_torch import ops
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    b, v, r, z, m = 2, 64, 64, 128, 96
+    vox = volume(b, v, 7, device)
+    w = torch.randn((b, r, r), device=device,
+                    generator=torch.Generator(device=device).manual_seed(8))
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        x = vox.to(dev).clone().requires_grad_(True)
+        rk.reset_launches()
+        out = ops.render_spherical_fast(x, r, z, m, torch.float32)
+        check(out.grad_fn is not None, f"renderer output on {dev} has no "
+              "grad_fn")
+        (out * w.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(rk.launches)
+            check(launches == {"render_stage1": 2, "render_stage2_scan": 1,
+                               "render_stage2_samples": 1},
+                  f"forward + backward launches {launches}")
+        else:
+            check(set(rk.launches.values()) == {0}, "the CPU run launched")
+        grads.append(x.grad.cpu())
+    rel = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    # test_pallas_vjp_matches_xla_grad's bound, relative to the largest
+    check(rel < 2e-2, f"card vs CPU renderer gradient {rel}")
+    x = volume(MAIN["b"], MAIN["v"], 9, device).requires_grad_(True)
+    out = ops.render_spherical_fast(x, MAIN["r"], MAIN["z"], MAIN["m"],
+                                    torch.bfloat16)
+    out.sum().backward()
+    check(bool(torch.isfinite(x.grad).all()), "bf16 gradient not finite")
+    with torch.inference_mode():
+        check(ops.render_spherical_fast(x, MAIN["r"], MAIN["z"], MAIN["m"],
+                                        torch.bfloat16).grad_fn is None,
+              "inference_mode recorded a graph")
+    log(f"[grad] renderer gradient card vs CPU, f32 (2, 64^3 -> 64^2 x "
+        f"128): max err {rel:.3g} of the largest; launches forward + "
+        f"backward {launches}; bf16 at batch 8, 128^3: finite")
+
+
+def _csv_rows(path):
+    import csv
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def phase_train(device, work):
+    """``cli.train`` at full width, bfloat16, batch 4, in stage 3 and with
+    --joint_train; then ``cli.test`` on the joint checkpoint."""
+    import torch
+    from genre_shapehd_tpu_torch.cli import test as cli_test
+    from genre_shapehd_tpu_torch.cli import train as cli_train
+    from genre_shapehd_tpu_torch.core.checkpoint import load_checkpoint
+    from genre_shapehd_tpu_torch.core.convert import jax_to_torch
+    from genre_shapehd_tpu_torch.core.registry import get_model
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    b, steps = TRAIN["batch"], TRAIN["steps"]
+    logdir = os.path.join(work, "train")
+    base = ["--net", "genre_full_model", "--dataset", "synthetic",
+            "--batch_size", str(b), "--dtype", "bfloat16",
+            "--surface_weight", "10", "--lr", "1e-4", "--epoch", "1",
+            "--epoch_batches", str(steps), "--eval_batches", "1",
+            "--synthetic_length", str(2 * b), "--workers", "4",
+            "--logdir", logdir, "--log_time", "--log_batch",
+            "--manual_seed", "0", "--save_net", "0", "--device", "cuda"]
+    # the weights cli.train starts from: the seeded init, made on the CPU
+    start = get_model("genre_full_model")(default_opt(device="cpu"))
+    start.init_state(0)
+    start = {k: v for k, v in start.net.state_dict().items()
+             if "running_" not in k and "num_batches" not in k}
+    runs, main_launches = {}, None
+    for name, extra, expr in (("stage3", [], "0"),
+                              ("joint", ["--joint_train"], "1")):
+        joint = name == "joint"
+        rk.reset_launches()
+        sk.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli_train.main(base + extra + ["--expr_id", expr])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {**rk.launches, **sk.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(rc == 0, f"cli.train {name} returned {rc}")
+        d = os.path.join(logdir, "genre_full_model_synthetic_0.0001", expr)
+        rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
+        check(len(rows) == steps, f"{name}: {len(rows)} logged steps")
+        metrics = [k for k in rows[0] if k not in ("epoch", "batch", "size",
+                                                   "batch_time",
+                                                   "data_time")]
+        check("voxel_loss" in metrics and ("depth" in metrics) == joint,
+              f"{name}: metrics {metrics}")
+        check(all(np.isfinite(float(row[k])) for row in rows
+                  for k in metrics), f"{name}: a loss is not finite")
+        # per step: K1, K2, K3 once, and under --joint_train the renderer's
+        # backward K1, K5 once more; the eval batch: K1, K2, K3 once
+        want = {"render_stage1": steps * (1 + joint) + 1,
+                "render_stage2_scan": steps + 1,
+                "render_stage2_samples": steps * joint,
+                "deconv_final": steps + 1}
+        check(launches == want, f"{name}: launches {launches} != {want}")
+        payload = load_checkpoint(os.path.join(d, "checkpoint.pt"))
+        check(int(payload["optimizers"][0]["count"]) == steps,
+              f"{name}: Adam count {payload['optimizers'][0]['count']}")
+        net = payload["nets"][0]
+        after = jax_to_torch(net["params"], net["batch_stats"])
+        moved = {}
+        for sub in ("depth_and_inpaint.net1.", "depth_and_inpaint.net2.",
+                    "refine_net."):
+            moved[sub] = max(float((after[k] - v).abs().max())
+                             for k, v in start.items() if k.startswith(sub))
+        check(moved["refine_net."] > 0 and
+              (moved["depth_and_inpaint.net1."] > 0) == joint and
+              (moved["depth_and_inpaint.net2."] > 0) == joint,
+              f"{name}: parameters moved {moved}")
+        times = [float(row["batch_time"]) for row in rows]
+        step_ms = statistics.median(times[2:]) * 1e3
+        loss = [round(float(row["loss"]), 4) for row in rows]
+        runs[name] = dict(step_ms=step_ms, peak_gib=peak, seconds=seconds,
+                          launches=launches, loss=loss, moved=moved)
+        if joint:
+            main_launches = launches
+        else:
+            # a checkpoint with Adam's moments is 1.2 GB: keep one run's
+            shutil.rmtree(d)
+        log(f"[train] cli.train {name}: {steps} steps of batch {b}, bf16, "
+            f"256^2 -> 128^3; loss {loss}; step {step_ms:.1f} ms (median of "
+            f"steps 3..{steps}; first two {times[0] * 1e3:.0f}, "
+            f"{times[1] * 1e3:.0f} ms); peak memory {peak:.2f} GiB; "
+            f"{seconds:.1f} s wall with set-up; launches {launches}; max "
+            f"parameter change {json.dumps(moved)}")
+    # the port's cli.test reads the checkpoint the training wrote
+    photos = os.path.join(work, "train_photos")
+    make_photos(photos, 4, seed=1)
+    out_dir = os.path.join(work, "train_test")
+    ckpt = os.path.join(logdir, "genre_full_model_synthetic_0.0001", "1",
+                        "checkpoint.pt")
+    rc = cli_test.main(["--net", "genre_full_model", "--net_file", ckpt,
+                        "--input_rgb", os.path.join(photos, "*_rgb.png"),
+                        "--input_mask",
+                        os.path.join(photos, "*_silhouette.png"),
+                        "--output_dir", out_dir, "--dtype", "bfloat16",
+                        "--batch_size", "4", "--vis_workers", "4",
+                        "--device", "cuda"])
+    check(rc == 0, f"cli.test on the trained checkpoint returned {rc}")
+    pv = np.load(os.path.join(out_dir, "batch0000.npz"))["pred_voxel"]
+    check(pv.shape == (4, 128, 128, 128) and bool(np.isfinite(pv).all()),
+          f"cli.test on the trained checkpoint: {pv.shape}")
+    log(f"[train] cli.test read the joint checkpoint: pred_voxel "
+        f"{pv.shape}, finite")
+    return runs, main_launches
+
+
+def phase_train_profile(device, runs):
+    """torch.profiler over one training step of each kind, after two warm
+    ones, on the synthetic batch: device time per stage (the forward's
+    ``genre.*`` spans, then loss, backward and optimizer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from genre_shapehd_tpu_torch.core.registry import get_dataset, get_model
+    from genre_shapehd_tpu_torch.data.loader import collate
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    out = {}
+    for name in ("stage3", "joint"):
+        opt = default_opt(device="cuda", dtype="bfloat16", lr=1e-4,
+                          surface_weight=10.0, joint_train=name == "joint",
+                          batch_size=TRAIN["batch"], synthetic_length=4)
+        model = get_model("genre_full_model")(opt)
+        model.init_state(0)
+        ds = get_dataset("synthetic")(opt, "train", model=model)
+        batch = model.device_batch(collate([ds[i] for i in range(4)]))
+        for _ in range(2):
+            model.train_step(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.train_step(batch)
+            torch.cuda.synchronize()
+        log(f"[train profile] {name} step:")
+        out[name] = device_profile(prof, 1, runs[name]["step_ms"],
+                                   OWN_KERNELS)
+        del model, batch
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -743,14 +1023,23 @@ def main() -> int:
     errs[k4], k4_times = phase_nn_min_dist(device, flush)
     ms[k4], plain_ms[k4], library_ms[k4], bounds[k4] = (
         k4_times[timed][k] for k in ("ms", "plain_ms", "library_ms", "bound"))
+    k5 = "render_stage2_samples"
+    errs[k5], ms[k5], plain_ms[k5], bounds[k5] = phase_stage2_samples(
+        device, flush)
+    library_ms[k5] = None
     del flush
+    phase_render_grad(device)
     launches, ckpt, out_dir = phase_main_path(device, work)
     launches.update(phase_score(device, work, out_dir))
     phase_reference(device)
     fwd_ms = phase_throughput(device, ckpt)
+    runs, train_launches = phase_train(device, work)
+    # K5 runs on the training path only: its launches are the joint run's
+    launches[k5] = train_launches[k5]
+    phase_train_profile(device, runs)
 
     kernels = []
-    for name in ("render_stage1", "render_stage2_scan", k3, k4):
+    for name in ("render_stage1", "render_stage2_scan", k3, k4, k5):
         bms, by = bounds[name]
         check(launches[name] > 0, f"{name} was not launched on its path")
         kernels.append({
@@ -763,13 +1052,19 @@ def main() -> int:
     # K4 is timed at 8 x 8192 x 8192 points; the scoring path gives it the
     # eval protocol's 1 x 1024 x 1024, where launch latency dominates
     ev = k4_times[eval_shape]
-    kernels[-1].update(
+    by_name = {k["name"]: k for k in kernels}
+    by_name[k4].update(
         timed_shape=list(timed), eval_shape=list(eval_shape),
         eval_shape_ms=ev["ms"], eval_shape_plain_ms=ev["plain_ms"],
         eval_shape_library_ms=ev["library_ms"],
         eval_shape_bound_ms=ev["bound"][0])
+    # K5 is timed at the training batch of 4
+    by_name[k5].update(timed_shape=[TRAIN["batch"], MAIN["r"], MAIN["r"],
+                                    MAIN["z"]])
     log(f"[summary] card: {card}; forward {fwd_ms:.2f} ms = "
-        f"{8e3 / fwd_ms:.1f} recon/s (batch 8, bf16); total "
+        f"{8e3 / fwd_ms:.1f} recon/s (batch 8, bf16); training step, batch "
+        f"4, bf16: stage 3 {runs['stage3']['step_ms']:.1f} ms, joint "
+        f"{runs['joint']['step_ms']:.1f} ms; total "
         f"{time.perf_counter() - t_start:.0f} s")
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernels}), flush=True)

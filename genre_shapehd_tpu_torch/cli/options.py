@@ -1,9 +1,104 @@
-"""Test-time CLI flags (the inference subset of
-``genre_shapehd_tpu/cli/options.py``) plus ``--device``."""
+"""CLI flags (counterpart of ``genre_shapehd_tpu/cli/options.py``): the
+train flags, parsed in two stages (general flags, then the chosen
+model's and dataset's ``add_arguments``, each of which names the
+``unique_params`` that a resume does not overwrite); the test flags of
+the inference path; ``--device`` for both.
+"""
 
 from __future__ import annotations
 
 import argparse
+import pickle
+from typing import Set, Tuple
+
+from ..core.registry import get_dataset, get_model
+
+
+def add_train_arguments(parser: argparse.ArgumentParser) -> Set[str]:
+    """The JAX package's general train flags that this package reads,
+    plus ``--device``; returns the general ``unique_params``."""
+    unique_params = {"resume", "epoch", "workers", "batch_size", "save_net",
+                     "epoch_batches", "logdir", "device"}
+    add = parser.add_argument
+    add("--manual_seed", type=int, default=None,
+        help="seed of the weights, the shuffling and the augmentation")
+    add("--resume", type=int, default=0,
+        help="0: scratch; -1: checkpoint.pt; -2: best.pt; N>0: nets/N.pt")
+    add("--suffix", default="", type=str,
+        help="logdir suffix, formatted with opt vars")
+    add("--epoch", type=int, default=0, help="number of epochs to train")
+    add("--dataset", type=str, default=None, help="dataset alias")
+    add("--workers", type=int, default=4, help="data-loading threads")
+    add("--batch_size", type=int, default=16)
+    add("--epoch_batches", default=None, type=int,
+        help="batches used per epoch")
+    add("--eval_batches", default=None, type=int,
+        help="batches used for evaluation")
+    add("--eval_at_start", action="store_true",
+        help="evaluate before training starts")
+    add("--log_time", action="store_true",
+        help="log batch_time/data_time (each step then waits for the "
+             "device)")
+    add("--log_every", type=int, default=1,
+        help="read the train metrics every N steps (same values, same "
+             "order; fewer waits for the device)")
+    add("--log_batch", action="store_true",
+        help="write batch_loss.csv, one row per train step")
+    add("--net", type=str, required=True, help="model alias")
+    add("--optim", type=str, default="adam")
+    add("--lr", type=float, default=1e-4)
+    add("--adam_beta1", type=float, default=0.5)
+    add("--adam_beta2", type=float, default=0.9)
+    add("--wdecay", type=float, default=0.0)
+    add("--logdir", type=str, default=None)
+    add("--expr_id", type=int, default=0,
+        help="experiment index; >0 refuses deletion")
+    add("--save_net", type=int, default=1,
+        help="save the network every N epochs")
+    add("--im_size", type=int, default=256)
+    add("--vox_res", type=int, default=128)
+    add("--sph_res", type=int, default=128)
+    add("--z_res", type=int, default=256)
+    add("--dtype", type=str, default="float32",
+        choices=("float32", "bfloat16"),
+        help="compute dtype of the nets and the renderer")
+    add("--synthetic_length", type=int, default=64,
+        help="samples per epoch of the synthetic dataset")
+    add("--device", type=str, default="cuda", choices=("cuda", "cpu"),
+        help="cuda (default) raises when no GPU is present")
+    return unique_params
+
+
+def parse_train(argv=None) -> Tuple[argparse.Namespace, Set[str]]:
+    """General flags first, then the model's and the dataset's."""
+    parser = argparse.ArgumentParser(
+        description="GenRe training (PyTorch port)")
+    unique_params = add_train_arguments(parser)
+    first, _ = parser.parse_known_args(argv)
+    if first.dataset is not None:
+        parser, u = get_dataset(first.dataset).add_arguments(parser)
+        unique_params |= u
+    parser, u = get_model(first.net).add_arguments(parser)
+    unique_params |= u
+    return parser.parse_args(argv), unique_params
+
+
+def save_opt(logdir: str, opt: argparse.Namespace) -> None:
+    """``opt.pt`` (a pickle of the options) and a readable ``opt.txt``."""
+    with open(f"{logdir}/opt.pt", "wb") as f:
+        pickle.dump(vars(opt), f)
+    with open(f"{logdir}/opt.txt", "w") as f:
+        for k in sorted(vars(opt)):
+            f.write(f"{k}: {getattr(opt, k)}\n")
+
+
+def overwrite_opt(opt: argparse.Namespace, saved: dict,
+                  unique_params: Set[str]) -> argparse.Namespace:
+    """Restore saved options except the unique params."""
+    for k, v in saved.items():
+        if k not in unique_params:
+            setattr(opt, k, v)
+    return opt
 
 
 def parse_test(argv=None) -> argparse.Namespace:

@@ -1,19 +1,22 @@
 """Checkpoints in the JAX package's format: a pickle of numpy trees,
   {'nets': [{'params': ..., 'batch_stats': ...}, ...],
-   'optimizers': [...], 'epoch': int, 'loss_eval': float, ...}.
+   'optimizers': [...], 'epoch': int, 'loss_eval': float, ...},
+and the resume policy of the JAX package's ``core/checkpoint.py``.
 
 The JAX package pickles its optimizer states as optax objects, so a plain
 ``pickle.load`` would import optax (and JAX).  :func:`load_checkpoint`
 unpickles with a restricted ``Unpickler``: numpy and a few builtins load
-as themselves, any other class becomes an inert stand-in.  Only ``nets``
-is read.
+as themselves, any other class becomes an inert stand-in that keeps the
+arguments and state the pickle hands it: optax's ``ScaleByAdamState``
+(a NamedTuple, pickled by NEWOBJ) keeps ``(count, mu, nu)`` in ``args``,
+which ``train/state.py::adam_moments`` reads.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 _SAFE_BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int",
                   "float", "complex", "bool", "str", "bytes", "bytearray",
@@ -22,13 +25,16 @@ _SAFE_BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int",
 
 class _Inert:
     """Stand-in for a pickled object of a class this package does not
-    load; keeps whatever the pickle hands it."""
+    load; keeps whatever the pickle hands it.  NEWOBJ calls ``__new__``
+    alone (never ``__init__``), so the arguments are kept there."""
 
     def __new__(cls, *args, **kwargs):
-        return object.__new__(cls)
+        obj = object.__new__(cls)
+        obj.args, obj.kwargs = args, kwargs
+        return obj
 
     def __init__(self, *args, **kwargs):
-        self.args = args
+        pass
 
     def __setstate__(self, state):
         self.state = state
@@ -76,3 +82,17 @@ def net_payload(params: Dict, batch_stats: Dict) -> Dict[str, Any]:
     return {"nets": [{"params": params, "batch_stats": batch_stats}],
             "optimizers": [], "epoch": 0, "loss_eval": 0.0,
             "net_names": ["net"], "opt_names": []}
+
+
+def resume_path(logdir: str, resume: int) -> Optional[str]:
+    """0: from scratch (None); -1: ``checkpoint.pt``; -2: ``best.pt``;
+    N > 0: ``nets/N.pt`` (4 digits)."""
+    if resume == 0:
+        return None
+    if resume == -1:
+        return os.path.join(logdir, "checkpoint.pt")
+    if resume == -2:
+        return os.path.join(logdir, "best.pt")
+    if resume > 0:
+        return os.path.join(logdir, "nets", f"{resume:04d}.pt")
+    raise ValueError(f"invalid resume value {resume}")

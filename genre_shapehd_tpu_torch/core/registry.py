@@ -12,6 +12,7 @@ _MODEL_MODULES: Dict[str, str] = {
 
 _DATASET_MODULES: Dict[str, str] = {
     "test": "genre_shapehd_tpu_torch.data.testset",
+    "synthetic": "genre_shapehd_tpu_torch.data.synthetic",
 }
 
 

@@ -1,10 +1,13 @@
-// Spherical renderer kernels for Hopper (sm_90a): K1 (stage 1) and K2
-// (stage 2 + first-hit scan + expected depth).
+// Spherical renderer kernels for Hopper (sm_90a): K1 (stage 1), K2
+// (stage 2 + first-hit scan + expected depth) and K5 (stage 2 alone,
+// every ray sample written out).
 //
 // Replaces the Pallas TPU kernels of
 // genre_shapehd_tpu/ops/pallas/render_kernel.py:
 //   K1 <- _s1_sparse_kernel (and its dense twin _s1_kernel)
 //   K2 <- _s2scan_kernel
+//   K5 <- _s2_kernel (reached from sample_rays_pallas), which the
+//         renderer's backward runs to recompute the ray samples
 //
 // The TPU kernels spend dense MXU matmuls on the resampling because
 // gathers are slow there.  Every hat-weight column has at most two
@@ -28,6 +31,12 @@
 //       share (b, th) and differ in ph, so the slab is reused from L1/L2.
 //       The (B, R, R, S) ray samples never reach device memory, which is
 //       what the Pallas fusion was for.
+//   K5: K2's gather without the scan.  Its output, the (B, R, R, S)
+//       float32 samples, is the bulk of its bytes (67 MB against 25 MB
+//       of c at batch 4), so one warp per ray with the lanes striding
+//       over s: the tap-table loads and the float32 stores of a warp are
+//       128 contiguous bytes each.  Rays are ordered as in K2, so the
+//       warps of a block share the c[b, th] slab.
 // Later work: stage the c[b, th] slab in shared memory, or fuse K1 into
 // K2 per (b, th).
 //
@@ -154,6 +163,39 @@ __global__ void stage2_scan_kernel(const T* __restrict__ c,
   if (lane == 0) out[((int64_t)b * Ph + ph) * Th + th] = acc + expf(total);
 }
 
+// One warp per ray (b, ph, th): out[b, ph, th, s] for every sample s,
+// unclipped.  Lane l computes s = l, l + 32, ...
+template <typename T>
+__global__ void stage2_samples_kernel(const T* __restrict__ c,
+                                      float* __restrict__ out,
+                                      const int* __restrict__ z_lo,
+                                      const float2* __restrict__ z_w,
+                                      const int* __restrict__ m_lo,
+                                      const float2* __restrict__ m_w, int B,
+                                      int Th, int M, int V, int Ph, int S) {
+  const int lane = threadIdx.x & 31;
+  const int64_t ray = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_rays = (int64_t)B * Th * Ph;
+  if (ray >= n_rays) return;                 // whole warp exits together
+  // ray = (b * Th + th) * Ph + ph: neighbouring warps share the c slab
+  const int ph = (int)(ray % Ph);
+  const int64_t bt = ray / Ph;
+  const int th = (int)(bt % Th);
+  const int b = (int)(bt / Th);
+  const T* slab = c + bt * M * V;
+  float* dst = out + (((int64_t)b * Ph + ph) * Th + th) * S;
+  for (int s = lane; s < S; s += 32) {
+    const int t = ph * S + s;
+    const int z0 = __ldg(z_lo + t), m0 = __ldg(m_lo + t);
+    const float2 wz = __ldg(z_w + t), wr = __ldg(m_w + t);
+    const T* r0 = slab + (int64_t)m0 * V + z0;
+    const T* r1 = r0 + V;
+    const float t0 = wz.x * to_f32(r0[0]) + wz.y * to_f32(r0[1]);
+    const float t1 = wz.x * to_f32(r1[0]) + wz.y * to_f32(r1[1]);
+    dst[s] = wr.x * t0 + wr.y * t1;
+  }
+}
+
 template <typename T, int SPL>
 void launch_stage2(const void* c, float* out, const int* z_lo,
                    const float2* z_w, const int* m_lo, const float2* m_w,
@@ -229,6 +271,34 @@ int render_stage2_scan(const void* c, float* out, int dtype, const int* z_lo,
     return dispatch_stage2<__nv_bfloat16>(c, out, z_lo, zw, m_lo, mw, B, Th,
                                           M, V, Ph, S, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// c (B, Th, M, V) -> out (B, Ph, Th, S) float32 ray samples; the tap
+// tables as for render_stage2_scan.
+int render_stage2_samples(const void* c, float* out, int dtype,
+                          const int* z_lo, const float* z_w, const int* m_lo,
+                          const float* m_w, int B, int Th, int M, int V,
+                          int Ph, int S, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* zw = reinterpret_cast<const float2*>(z_w);
+  const float2* mw = reinterpret_cast<const float2*>(m_w);
+  const int block = 256;                     // 8 rays per block
+  const int64_t threads = (int64_t)B * Th * Ph * 32;
+  const int64_t grid = (threads + block - 1) / block;
+  if (S < 1 || V < 2 || M < 2 || grid <= 0 || grid > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    stage2_samples_kernel<float><<<(unsigned)grid, block, 0, st>>>(
+        static_cast<const float*>(c), out, z_lo, zw, m_lo, mw, B, Th, M, V,
+        Ph, S);
+  } else if (dtype == 1) {
+    stage2_samples_kernel<__nv_bfloat16><<<(unsigned)grid, block, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(c), out, z_lo, zw, m_lo, mw, B,
+        Th, M, V, Ph, S);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -6,7 +6,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -26,21 +26,38 @@ def collate(samples: List[Dict]) -> Dict:
 
 
 class DataLoader:
-    """In-order batches (the last one may be short), built by
-    ``num_workers`` threads, ``PREFETCH`` batches ahead."""
+    """Batches built by ``num_workers`` threads, ``PREFETCH`` batches
+    ahead.  In order, the last one short, unless ``shuffle`` (a new
+    permutation each pass, from ``seed`` + the pass number) or
+    ``drop_last``."""
     PREFETCH = 2
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 4):
+    def __init__(self, dataset, batch_size: int, num_workers: int = 4,
+                 shuffle: bool = False, seed: int = 0,
+                 drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.epoch = 0
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
+
+    def _index_batches(self) -> List[List[int]]:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        bs = self.batch_size
+        return [idx[i * bs:(i + 1) * bs].tolist() for i in range(len(self))]
 
     def __iter__(self) -> Iterator[Dict]:
-        n, bs = len(self.dataset), self.batch_size
-        batches = [list(range(i, min(i + bs, n))) for i in range(0, n, bs)]
+        batches = self._index_batches()
+        self.epoch += 1
         q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH)
         stop = threading.Event()
 
@@ -68,3 +85,20 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
+
+
+class InfiniteLoader:
+    """Cycles a DataLoader forever, a new pass when one ends."""
+
+    def __init__(self, loader: DataLoader):
+        self.loader = loader
+        self._it: Optional[Iterator] = None
+
+    def __next__(self):
+        if self._it is None:
+            self._it = iter(self.loader)
+        try:
+            return next(self._it)
+        except StopIteration:
+            self._it = iter(self.loader)
+            return next(self._it)

@@ -1,6 +1,7 @@
-"""Host-side test-time image reading, writing and preprocessing without
-cv2 (counterpart of the inference parts of
-``genre_shapehd_tpu/data/preprocess.py``).
+"""Host-side image reading, writing and preprocessing without cv2
+(counterpart of ``genre_shapehd_tpu/data/preprocess.py``): the test-time
+crop and resize, and the train-time photometric augmentation, whose
+randomness comes from an explicit ``numpy.random.Generator``.
 
 Resizing runs ``torch.nn.functional.interpolate`` in float64 on the CPU
 with ``align_corners=False`` and no antialiasing: bicubic (A = -0.75) for
@@ -21,6 +22,14 @@ from .png import read_png, write_png
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+# AlexNet PCA lighting
+_LIGHT_EIGVALS = np.array([0.2175, 0.0188, 0.0045])
+_LIGHT_EIGVECS = np.array([
+    [-0.5675, 0.7192, 0.4009],
+    [-0.5808, -0.0045, -0.8140],
+    [-0.5836, -0.6948, 0.4203],
+])
 
 
 def imread_rgb(path: str) -> np.ndarray:
@@ -71,6 +80,40 @@ def resize(im: np.ndarray, target_size: int,
     if clamp is not None:
         out = np.clip(out, clamp[0], clamp[1])
     return out
+
+
+def rgb2gray(rgb: np.ndarray) -> np.ndarray:
+    ch = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    return np.stack([ch, ch, ch], axis=-1)
+
+
+def jitter_colors(rgb: np.ndarray, d_brightness: float,
+                  d_contrast: float, d_saturation: float,
+                  rng: np.random.Generator) -> np.ndarray:
+    """Brightness, contrast and saturation jitter in random order:
+    out = alpha*im + (1-alpha)*base with alpha ~ U[1-d, 1+d]; base = 0 /
+    mean gray / gray image."""
+    out = rgb.astype(np.float64, copy=True)
+    attrs = ["brightness", "contrast", "saturation"]
+    ds = [d_brightness, d_contrast, d_saturation]
+    for i in rng.permutation(3):
+        alpha = 1.0 + rng.uniform(-ds[i], ds[i]) if ds[i] > 0 else 1.0
+        if attrs[i] == "brightness":
+            base = 0.0
+        elif attrs[i] == "contrast":
+            base = float(np.mean(rgb2gray(out)[..., 0]))
+        else:
+            base = rgb2gray(out)
+        out = alpha * out + (1.0 - alpha) * base
+    return out
+
+
+def add_lighting_noise(rgb01: np.ndarray, alpha_std: float,
+                       rng: np.random.Generator) -> np.ndarray:
+    """AlexNet PCA lighting noise."""
+    alpha = rng.normal(0.0, alpha_std, size=3)
+    noise = (_LIGHT_EIGVECS * alpha[None, :] * _LIGHT_EIGVALS[None, :]).sum(1)
+    return rgb01.astype(np.float64) + noise[None, None, :]
 
 
 def normalize_colors(rgb01: np.ndarray) -> np.ndarray:

@@ -1,1 +1,1 @@
-"""Models of this package: the GenRe full model's inference path."""
+"""Models of this package: the GenRe full model (training and inference)."""

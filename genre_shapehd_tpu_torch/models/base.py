@@ -1,18 +1,45 @@
-"""Model base: device, compute dtype, test-mode preprocessing (counterpart
-of the inference parts of ``genre_shapehd_tpu/models/base.py``)."""
+"""Model base: options, device, compute dtype, preprocessing, losses, the
+optimizer and the train / eval steps (counterpart of
+``genre_shapehd_tpu/models/base.py``).
+
+A model owns its net (``self.net``, an ``nn.Module`` on ``opt.device``)
+and its Adam optimizer.  ``train_step(batch)`` runs forward, loss,
+backward and one Adam update and returns the batch's loss terms as
+device scalars; ``eval_step(batch)`` returns them with the predictions.
+Batches are the loaders' numpy dicts, channel-last.
+"""
 
 from __future__ import annotations
 
 from contextlib import nullcontext
-from typing import Dict
+from types import SimpleNamespace
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..core.device import resolve_device
 from ..data import preprocess as pp
+from ..nn import init_weights
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def default_opt(**overrides) -> SimpleNamespace:
+    """Programmatic stand-in for the CLI options (the JAX package's
+    ``default_opt`` for what this package reads, plus ``device``)."""
+    base = dict(
+        lr=1e-3, adam_beta1=0.5, adam_beta2=0.9, optim="adam", wdecay=0.0,
+        batch_size=4, epoch_batches=None, eval_batches=None, epoch=0,
+        logdir=None, full_logdir=None, log_time=False, log_every=1,
+        manual_seed=None, im_size=256, vox_res=128, sph_res=128, z_res=256,
+        padding_margin=16, dtype="float32", device="cuda",
+        joint_train=False, inpaint_path=None,
+        surface_weight=1.0, joint_w25d=0.01, augment=True, no_aug=False)
+    base.update(overrides)
+    return SimpleNamespace(**base)
 
 
 def net_autocast(device: torch.device, dtype: torch.dtype):
@@ -31,29 +58,149 @@ def to_abs_depth(rel_depth: torch.Tensor,
     return rel_depth * (dmax - dmin + 1e-4) + dmin
 
 
+def masked_mse(pred: torch.Tensor, gt: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Mean over the selected elements -- torch's ``mse(a[m], b[m])``."""
+    mask = torch.broadcast_to(mask, pred.shape).to(pred.dtype)
+    return (mask * (pred - gt) ** 2).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
+                    ) -> torch.Tensor:
+    return F.binary_cross_entropy_with_logits(logits, labels)
+
+
 class ModelBase:
     silhou_thres = 0.999
     scale_25d = 100.0
+    rgb_jitter_d = 0.4
+    rgb_light_noise = 0.1
+
+    requires: List[str] = []
+    metrics: List[str] = ["loss"]
+
+    @classmethod
+    def add_arguments(cls, parser):
+        """Register model flags; returns (parser, unique_params)."""
+        return parser, set()
 
     def __init__(self, opt):
         self.opt = opt
+        if getattr(opt, "optim", "adam") != "adam":
+            raise ValueError("only --optim adam is ported")
         self.dtype = DTYPES[opt.dtype]
-        self.device = resolve_device(opt.device)
+        self.device = resolve_device(getattr(opt, "device", "cuda"))
         self.im_size = opt.im_size
+        self.augment = bool(getattr(opt, "augment", True)) \
+            and not getattr(opt, "no_aug", False)
+        if getattr(opt, "log_time", False):
+            self.metrics = list(self.metrics) + ["batch_time", "data_time"]
+        self.net: Optional[torch.nn.Module] = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.step = 0
 
-    def preprocess(self, data: Dict) -> Dict:
-        """Per-sample host transform at test time (no photometric
-        augmentation), channel-last: rgb resized and ImageNet-normalized;
-        silhou resized, binarized at ``silhou_thres`` and scaled by
-        ``scale_25d``."""
+    # ------------------------------------------------------------- state
+    def init_state(self, seed: int = 0) -> None:
+        """Seeded weights on the device and a fresh Adam."""
+        init_weights(self.net, torch.Generator().manual_seed(seed))
+        self.net.to(self.device)
+        self.optimizer = self.adam(self.net.parameters())
+        self.step = 0
+
+    def adam(self, params) -> torch.optim.Adam:
+        """Adam with the options' lr and betas, weight decay added to the
+        gradient (optax's ``add_decayed_weights`` before ``adam``).
+
+        Every parameter carries a zero gradient from the start, so a step
+        updates all of them, as optax does: a parameter that no loss
+        reaches keeps its place only while its first moment is 0."""
+        params = list(params)
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        opt = self.opt
+        return torch.optim.Adam(params, lr=opt.lr,
+                                betas=(opt.adam_beta1, opt.adam_beta2),
+                                eps=1e-8, weight_decay=opt.wdecay)
+
+    # ------------------------------------------------------------- steps
+    def device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """The numpy arrays of a batch as float32 tensors on the device."""
+        return {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
+                for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+    def forward_batch(self, batch: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def compute_loss(self, pred, batch) -> Tuple[torch.Tensor, Dict]:
+        raise NotImplementedError
+
+    def train_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """One step on ``batch`` (numpy or device tensors): forward, loss,
+        backward, Adam.  Returns the loss terms as device scalars."""
+        if not isinstance(next(iter(batch.values())), torch.Tensor):
+            batch = self.device_batch(batch)
+        self.net.train()
+        self.optimizer.zero_grad(set_to_none=False)
+        pred = self.forward_batch(batch)
+        with record_function("genre.loss"):
+            loss, loss_data = self.compute_loss(pred, batch)
+        with record_function("genre.backward"):
+            loss.backward()
+        with record_function("genre.optimizer"):
+            self.optimizer.step()
+        self.step += 1
+        return {k: v.detach() for k, v in loss_data.items()}
+
+    def eval_step(self, batch: Dict):
+        """(loss terms, predictions) in eval mode, without gradients."""
+        if not isinstance(next(iter(batch.values())), torch.Tensor):
+            batch = self.device_batch(batch)
+        self.net.eval()
+        with torch.no_grad():
+            pred = self.forward_batch(batch)
+            _, loss_data = self.compute_loss(pred, batch)
+        return loss_data, pred
+
+    # ------------------------------------------------------- data contract
+    def preprocess(self, data: Dict, mode: str = "train",
+                   rng: Optional[np.random.Generator] = None) -> Dict:
+        """Per-sample host transform, channel-last: rgb resized (with the
+        photometric augmentation in train mode, drawn from ``rng``) and
+        ImageNet-normalized; depth / silhou (H,W,1) and normal (H,W,3)
+        resized and scaled by ``scale_25d``, silhou binarized at
+        ``silhou_thres``."""
+        aug = mode == "train" and self.augment
+        if aug and rng is None:
+            raise ValueError("train-mode augmentation draws from a seeded "
+                             "numpy Generator: pass rng")
         out = dict(data)
         for key, val in data.items():
             if key == "rgb":
                 im = pp.resize(val, self.im_size)
+                if aug:
+                    d = self.rgb_jitter_d
+                    im = pp.jitter_colors(im, d, d, d, rng=rng)
+                    im = pp.add_lighting_noise(im, self.rgb_light_noise,
+                                               rng=rng)
                 out[key] = pp.normalize_colors(im).astype(np.float32)
-            elif key == "silhou":
+            elif key in ("depth", "silhou"):
                 im = val[..., 0] if val.ndim == 3 else val
                 im = pp.resize(im, self.im_size, clamp=(im.min(), im.max()))
-                im = pp.binarize(im, self.silhou_thres)
+                if key == "silhou":
+                    im = pp.binarize(im, self.silhou_thres)
                 out[key] = (im * self.scale_25d)[..., None].astype(np.float32)
+            elif key == "normal":
+                im = pp.resize(val, self.im_size,
+                               clamp=(val.min(), val.max()))
+                out[key] = (im * self.scale_25d).astype(np.float32)
         return out
+
+    # ------------------------------------------------------ bookkeeping
+    @property
+    def net_names(self) -> List[str]:
+        return ["net"]
+
+    @property
+    def optimizer_names(self) -> List[str]:
+        return ["net"]

@@ -1,4 +1,4 @@
-"""GenRe stage 2 forward: depth prediction + spherical-map inpainting
+"""GenRe stage 2: depth prediction + spherical-map inpainting
 (counterpart of ``genre_shapehd_tpu/models/depth_inpaint.py``).
 
   rgb --net1 (U-ResNet + minmax)--> 2.5D + minmax
@@ -10,39 +10,55 @@ The nets run in the compute dtype; the geometry between them in float32.
 Each stage runs under a ``torch.profiler.record_function`` span named
 ``genre.<stage>`` (no cost unless a profiler is recording), which
 ``chip_smoke.py`` reads for its per-stage device times.
+
+Training: without ``joint_train`` net1 runs in eval mode and without a
+gradient (the JAX package's ``train=train and joint_train`` and its
+stop-gradient), while net2 follows the module's mode.  With it, the
+loss reaches net1 through the renderer and the camera backprojection;
+the depth min/max and the silhouette stay detached, as there.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
 
 from .. import ops
+from ..core.checkpoint import load_checkpoint
+from ..core.convert import jax_to_torch
 from ..nn import UResNet
 from .base import net_autocast, to_abs_depth
+from .marrnet1 import Model as DepthModel
 
 
 class DepthInpaintNet(nn.Module):
     def __init__(self, im_size: int = 256, vox_res: int = 128,
                  sph_res: int = 128, z_res: int = 256,
-                 padding_margin: int = 16,
+                 padding_margin: int = 16, joint_train: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vox_res, self.sph_res, self.z_res = vox_res, sph_res, z_res
         self.padding_margin = padding_margin
+        self.joint_train = joint_train
         self.dtype = dtype
         self.net1 = UResNet(3, (3, 1, 1), ("normal", "depth", "silhou"),
                             pred_depth_minmax=True, im_size=im_size)
         self.net2 = UResNet(1, (1,), ("spherical",), inpainting=True)
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.net1.train(mode and self.joint_train)
+        return self
+
     @staticmethod
     def get_abs_depth(out1: Dict[str, torch.Tensor],
                       silhou_in: torch.Tensor) -> torch.Tensor:
         pred_depth = out1["depth"].float() / 100.0
-        minmax = out1["depth_minmax"].float()
+        minmax = out1["depth_minmax"].float().detach()
         abs_depth = to_abs_depth(1.0 - pred_depth, minmax)
         silhou = silhou_in / 100.0
         abs_depth = torch.where(silhou < 0.5, 0.0, abs_depth)
@@ -52,7 +68,8 @@ class DepthInpaintNet(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """rgb (N, H, W, 3), silhou (N, H, W, 1) in [0, 100]."""
         with record_function("genre.net1"), \
-                net_autocast(rgb.device, self.dtype):
+                net_autocast(rgb.device, self.dtype), torch.set_grad_enabled(
+                    torch.is_grad_enabled() and self.joint_train):
             out1 = self.net1(rgb)
         with record_function("genre.camera_bp"):
             abs_depth = self.get_abs_depth(out1, silhou)
@@ -70,3 +87,67 @@ class DepthInpaintNet(nn.Module):
         out1["pred_sph_partial"] = sph_in
         out1["pred_sph_full"] = out2["spherical"]
         return out1
+
+
+class Model(DepthModel):
+    """Stage-2 loss and data: the spherical MSE (plus MarrNet-1's losses
+    under ``joint_train``), the padded ground-truth spherical map, and
+    loading a pretrained sub-network.  ``genre_full.Model`` builds on it."""
+    pred_depth_minmax = True
+
+    @classmethod
+    def add_arguments(cls, parser):
+        parser.add_argument("--joint_train", action="store_true",
+                            help="jointly train net1 and net2")
+        parser.add_argument("--padding_margin", default=16, type=int)
+        parser.add_argument("--no_aug", action="store_true",
+                            help="disable train-time photometric "
+                                 "augmentation")
+        return parser, {"joint_train"}
+
+    def __init__(self, opt):
+        super().__init__(opt)
+        self.joint_train = bool(getattr(opt, "joint_train", False))
+        if self.joint_train:
+            self.requires = ["rgb", "depth", "silhou", "normal",
+                             "depth_minmax", "spherical"]
+            self.metrics = ["loss", "depth", "silhou", "normal",
+                            "depth_minmax", "spherical"]
+        else:
+            self.requires = ["silhou", "rgb", "spherical"]
+            self.metrics = ["loss", "spherical"]
+
+    def load_subnet(self, sub: str, path: str, src_index: int = 0) -> None:
+        """Load a pretrained sub-network (e.g. net1, or the whole
+        depth_and_inpaint of GenRe) from a checkpoint of either package:
+        the ``src_index``-th net, or its ``net`` subtree when it has one."""
+        src = load_checkpoint(path)["nets"][src_index]
+        params = src["params"].get("net", src["params"])
+        stats = src.get("batch_stats") or {}
+        stats = stats.get("net", stats)
+        self.net.get_submodule(sub).load_state_dict(
+            jax_to_torch(params, stats))
+
+    def compute_loss(self, pred, batch) -> Tuple[torch.Tensor, Dict]:
+        loss, loss_data = (super().compute_loss(pred, batch)
+                           if self.joint_train else (0.0, {}))
+        sph_loss = ((pred["pred_sph_full"].float()
+                     - batch["spherical_object"]) ** 2).mean()
+        loss = loss + sph_loss
+        loss_data["spherical"] = sph_loss
+        loss_data["loss"] = loss
+        return loss, loss_data
+
+    def preprocess(self, data, mode="train", rng=None):
+        """Adds the wrap / edge padding of the ground-truth spherical map;
+        spherical arrays are stored channel-last (H+2m, W+2m, 1)."""
+        out = super().preprocess(data, mode, rng)
+        if "spherical_object" in out:
+            val = np.asarray(out["spherical_object"])          # (1, R, R)
+            padded = ops.sph_pad_numpy(val, self.opt.padding_margin)
+            out["spherical_object"] = np.moveaxis(
+                padded, 0, -1).astype(np.float32)
+        if "spherical_depth" in out:
+            out["spherical_depth"] = np.moveaxis(
+                np.asarray(out["spherical_depth"]), 0, -1).astype(np.float32)
+        return out

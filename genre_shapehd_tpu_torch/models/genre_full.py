@@ -1,11 +1,19 @@
-"""GenRe full model, inference (counterpart of
+"""GenRe full model (counterpart of
 ``genre_shapehd_tpu/models/genre_full.py``): stage 2 (depth + spherical
 inpainting), then spherical backprojection of the full map and the 3D
-U-Net refinement to 128³ voxel logits."""
+U-Net refinement to 128³ voxel logits.
+
+Loss: BCE-with-logits on the ground-truth voxels plus ``surface_weight``
+times BCE(sigmoid(pred) * shell, shell) on their surface shell (two
+erosions, ``ops/voxel.py``), plus ``joint_w25d`` times the 2.5D and
+spherical losses under ``joint_train``.  Without ``joint_train`` stage 2
+runs without a gradient (net2 in train mode, net1 in eval mode) and only
+the refine net learns.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -15,26 +23,30 @@ from torch.profiler import record_function
 from .. import ops
 from ..core.convert import jax_to_torch
 from ..nn import UNet3D, init_weights
-from .base import ModelBase, net_autocast
-from .depth_inpaint import DepthInpaintNet
+from .base import bce_with_logits, net_autocast
+from .depth_inpaint import DepthInpaintNet, Model as DepthInpaintModel
 from .test_base import TestMixin
 
 
 class GenreNet(nn.Module):
     def __init__(self, im_size: int = 256, vox_res: int = 128,
                  sph_res: int = 128, z_res: int = 256,
-                 padding_margin: int = 16,
-                 dtype: torch.dtype = torch.float32):
+                 padding_margin: int = 16, joint_train: bool = False,
+                 refine_nf: int = 20, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vox_res, self.padding_margin, self.dtype = (
             vox_res, padding_margin, dtype)
+        self.joint_train = joint_train
         self.depth_and_inpaint = DepthInpaintNet(
-            im_size, vox_res, sph_res, z_res, padding_margin, dtype)
-        self.refine_net = UNet3D(nf=20, res=vox_res)
+            im_size, vox_res, sph_res, z_res, padding_margin, joint_train,
+            dtype)
+        self.refine_net = UNet3D(nf=refine_nf, res=vox_res)
 
     def forward(self, rgb: torch.Tensor, silhou: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
-        out1 = self.depth_and_inpaint(rgb, silhou)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and self.joint_train):
+            out1 = self.depth_and_inpaint(rgb, silhou)
         with record_function("genre.spherical_bp"):
             pred_proj_sph = ops.backproject_spherical_masked(
                 out1["pred_sph_full"][..., 0].float(), self.padding_margin,
@@ -51,21 +63,80 @@ class GenreNet(nn.Module):
         return out1
 
 
-class Model(ModelBase):
-    """GenreNet on ``opt.device`` in ``opt.dtype``, eval mode."""
+class Model(DepthInpaintModel):
+    """GenreNet on ``opt.device`` in ``opt.dtype``, eval mode until a
+    step; ``init_state`` gives it a seeded start and Adam."""
+
+    @classmethod
+    def add_arguments(cls, parser):
+        parser, unique = DepthInpaintModel.add_arguments(parser)
+        parser.add_argument("--inpaint_path", default=None, type=str,
+                            help="pretrained inpainting module checkpoint")
+        parser.add_argument("--surface_weight", default=1.0, type=float,
+                            help="weight for voxel surface prediction")
+        parser.add_argument("--joint_w25d", default=0.01, type=float,
+                            help="weight on the 2.5D+spherical supervision "
+                                 "under --joint_train")
+        return parser, unique | {"surface_weight", "joint_train",
+                                 "inpaint_path", "joint_w25d"}
 
     def __init__(self, opt):
         super().__init__(opt)
+        if self.joint_train:
+            self.requires = self.requires + ["voxel"]
+        else:
+            self.requires = ["rgb", "silhou", "voxel"]
+        self.metrics = self.metrics + ["voxel_loss", "surface_loss"]
+        self.surface_weight = float(getattr(opt, "surface_weight", 1.0))
+        self.joint_w25d = float(getattr(opt, "joint_w25d", 0.01))
         self.net = GenreNet(
             im_size=opt.im_size, vox_res=opt.vox_res, sph_res=opt.sph_res,
             z_res=opt.z_res, padding_margin=opt.padding_margin,
-            dtype=self.dtype).eval()
+            joint_train=self.joint_train, dtype=self.dtype).eval()
         init_weights(self.net, torch.Generator().manual_seed(0))
         self.net.to(self.device)
+
+    def init_state(self, seed: int = 0) -> None:
+        super().init_state(seed)
+        if getattr(self.opt, "inpaint_path", None):
+            self.load_subnet("depth_and_inpaint", self.opt.inpaint_path)
 
     def load_weights(self, params: Dict, batch_stats: Dict) -> None:
         """Load a JAX-layout parameter tree (``core/convert.py``)."""
         self.net.load_state_dict(jax_to_torch(params, batch_stats))
+
+    def forward_batch(self, batch: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        return self.net(batch["rgb"], batch["silhou"])
+
+    def compute_loss(self, pred, batch) -> Tuple[torch.Tensor, Dict]:
+        loss, loss_data = (DepthInpaintModel.compute_loss(self, pred, batch)
+                           if self.joint_train else (0.0, {}))
+        loss = loss * self.joint_w25d
+        gt = ops.voxel.surface_from_solid(batch["voxel"])
+        logits = pred["pred_voxel"].float()
+        voxel_loss = bce_with_logits(logits, gt)
+        sig = torch.clamp(torch.sigmoid(logits) * gt, 1e-7, 1.0 - 1e-7)
+        # BCE(sig*gt, gt): nonzero only where gt == 1, -log(sigmoid)
+        surface_loss = -(gt * torch.log(sig)
+                         + (1.0 - gt) * torch.log1p(-sig)).mean()
+        loss = loss + voxel_loss + surface_loss * self.surface_weight
+        loss_data["voxel_loss"] = voxel_loss
+        loss_data["surface_loss"] = surface_loss * self.surface_weight
+        loss_data["loss"] = loss
+        return loss, loss_data
+
+    def preprocess(self, data, mode="train", rng=None):
+        """The ground-truth voxels (X, Y, Z) to the train frame: swap the
+        last two axes, flip the last."""
+        out = super().preprocess(data, mode, rng)
+        if "voxel" in out:
+            val = np.asarray(out["voxel"], dtype=np.float32)
+            if val.ndim == 4:
+                val = val[0]
+            out["voxel"] = np.ascontiguousarray(
+                np.flip(np.transpose(val, (0, 2, 1)), 2))
+        return out
 
     def predict_step(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:
@@ -73,6 +144,7 @@ class Model(ModelBase):
                               device=self.device)
         silhou = torch.as_tensor(batch["silhou"], dtype=torch.float32,
                                  device=self.device)
+        self.net.eval()
         with torch.inference_mode():
             pred = self.net(rgb, silhou)
             # back to the dataset's voxel orientation

@@ -43,7 +43,7 @@ class TestMixin:
         for key in ("rgb", "silhou"):
             in_dict[key] = pp.crop(in_dict[key], bbox, CROP_IN_SIZE, CROP_PAD,
                                    pad_zero=False)
-        return self.preprocess(in_dict)
+        return self.preprocess(in_dict, mode="test")
 
     def test_on_batch(self, batch_i: int, batch: Dict) -> Dict:
         """Predict one batch, hand it to the visualizer (meshes and images

@@ -15,9 +15,45 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class _FlaxStats:
+    """Train mode as Flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)``:
+    normalise with the batch's biased variance, as torch does, but also
+    move the running variance toward the biased one, where torch takes
+    the unbiased (n/(n-1) larger: 4/3 for a batch of 4 in a
+    BatchNorm1d).  The statistics are taken in float32, as Flax takes
+    them for a bfloat16 module.  Eval mode is torch's own."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = (0,) + tuple(range(2, x.dim()))
+        with torch.no_grad():
+            xs = x.to(torch.promote_types(x.dtype, torch.float32))
+            var, mean = torch.var_mean(xs, dim=dims, correction=0)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                             0.0, self.eps)
+
+
+class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxStats, nn.BatchNorm3d):
+    pass
+
+
 def batch_norm(features: int, dims: int = 2) -> nn.Module:
     """Flax BatchNorm(momentum=0.9, eps=1e-5) == torch momentum 0.1."""
-    cls = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[dims]
+    cls = {1: BatchNorm1d, 2: BatchNorm2d, 3: BatchNorm3d}[dims]
     return cls(features, eps=1e-5, momentum=0.1)
 
 

@@ -1,5 +1,5 @@
-"""The spherical renderer's two CUDA kernels, their plain versions and
-launch counts (counterpart of
+"""The spherical renderer's three CUDA kernels, their plain versions,
+launch counts and gradients (counterpart of
 ``genre_shapehd_tpu/ops/pallas/render_kernel.py``).
 
   K1 ``render_stage1``      (csrc/render_kernel.cu) replaces the Pallas
@@ -9,11 +9,26 @@ launch counts (counterpart of
      c -> (B, Ph, Th) expected depth, float32, with the clip, the first-hit
      scan and the depth reduction fused in, so the (B, R, R, S) ray
      samples never reach device memory.
+  K5 ``render_stage2_samples`` replaces ``_s2_kernel``: c -> (B, Ph, Th, S)
+     float32 ray samples, every one written out.
 
-:func:`stage1` and :func:`stage2` launch the kernels on CUDA tensors and
-run the plain versions (:func:`stage1_plain`, :func:`stage2_plain`, the
-dense einsums of the JAX package's ``sample_rays_mxu`` plus its epilogue)
-on CPU tensors.  A CUDA tensor either launches the kernel or raises.
+:func:`stage1`, :func:`stage2` and :func:`stage2_samples` launch the
+kernels on CUDA tensors and run the plain versions (:func:`stage1_plain`,
+:func:`stage2_plain`, :func:`stage2_samples_plain`: the dense einsums of
+the JAX package's ``sample_rays_mxu`` plus its epilogue) on CPU tensors.
+A CUDA tensor either launches the kernel or raises.
+
+Gradients.  :func:`render_expected_depth` (the counterpart of
+``render_expected_depth_pallas``) and :func:`sample_rays` (of
+``sample_rays_pallas``) go through an ``autograd.Function`` when the
+volume requires a gradient, and are plain calls otherwise (under
+``inference_mode`` nothing is recorded).  The sampling map vox -> samples is linear; its
+transpose (:func:`sample_rays_transpose`) is two scatter-adds over the
+tap tables, in float32, on either device, as ``_sample_bwd`` takes XLA's
+transpose.  The renderer's backward saves only the volume: it recomputes
+the samples with K1 + K5 (the plain versions on the CPU), differentiates
+the clip / first-hit / expected-depth epilogue in plain PyTorch, and
+applies the transpose, as ``_render_expd_bwd`` does.
 
 The plain versions mirror the JAX package's rounding: operands are cast
 to the compute dtype, each contraction accumulates in float32, and the
@@ -37,7 +52,8 @@ from . import build
 SOURCE = "render_kernel.cu"
 
 #: launches of each kernel since the last :func:`reset_launches`
-launches: Dict[str, int] = {"render_stage1": 0, "render_stage2_scan": 0}
+launches: Dict[str, int] = {"render_stage1": 0, "render_stage2_scan": 0,
+                            "render_stage2_samples": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _cache: Dict[Tuple, Dict[str, torch.Tensor]] = {}
@@ -141,6 +157,9 @@ def _library():
         lib.render_stage2_scan.argtypes = [p, p, i, p, p, p, p,
                                            i, i, i, i, i, i, p]
         lib.render_stage2_scan.restype = i
+        lib.render_stage2_samples.argtypes = [p, p, i, p, p, p, p,
+                                              i, i, i, i, i, i, p]
+        lib.render_stage2_samples.restype = i
         _lib = lib
     return _lib
 
@@ -234,12 +253,145 @@ def stage2(c: torch.Tensor, vox_res: int, sph_res: int = 128,
     return out
 
 
+def stage2_samples(c: torch.Tensor, vox_res: int, sph_res: int = 128,
+                   z_res: int = 256, rho_res: int = RHO_RES,
+                   compute_dtype: torch.dtype = torch.float32
+                   ) -> torch.Tensor:
+    """K5: c (B, Th, M, V) -> (B, Ph, Th, S) float32 ray samples."""
+    _check_shape(c, (sph_res, rho_res, vox_res), "render_stage2_samples c")
+    code = _dtype_code(compute_dtype)
+    if c.device.type == "cpu":
+        return stage2_samples_plain(c, vox_res, sph_res, z_res, rho_res,
+                                    compute_dtype)
+    _on_cuda(c, "render_stage2_samples")
+    if c.dtype != compute_dtype:
+        raise TypeError(f"c is {c.dtype}, compute dtype {compute_dtype}")
+    c = c.contiguous()
+    taps = device_taps(vox_res, sph_res, z_res, rho_res, compute_dtype,
+                       c.device)
+    b = c.shape[0]
+    out = torch.empty((b, sph_res, sph_res, z_res), dtype=torch.float32,
+                      device=c.device)
+    lib = _library()
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.render_stage2_samples(
+            _ptr(c), _ptr(out), code, _ptr(taps["z_lo"]), _ptr(taps["z_w"]),
+            _ptr(taps["m_lo"]), _ptr(taps["m_w"]), b, sph_res, rho_res,
+            vox_res, sph_res, z_res, ctypes.c_void_p(stream))
+        launches["render_stage2_samples"] += 1
+    _check(err, "render_stage2_samples")
+    return out
+
+
+# ---------------------------------------------------------------- gradients
+def _scatter_tables(vox_res, sph_res, z_res, rho_res, dtype, device):
+    """Rows and weights of the two scatter-adds of the transpose, from the
+    tap tables (weights rounded to the compute dtype, as in the forward):
+    stage 2, per (ph, s, i, j): row (m0+i)*V + z0+j of c, weight
+    wr_i * wz_j; stage 1, per (th, m, i, j): row (x0+i)*V + y0+j of the
+    volume, weight wx_i * wy_j."""
+    key = ("scatter", vox_res, sph_res, z_res, rho_res, dtype, str(device))
+    if key not in _cache:
+        t = {k: torch.as_tensor(v) for k, v in
+             tap_tables(vox_res, sph_res, z_res, rho_res).items()}
+        w = {k: t[k + "_w"].to(dtype).float() for k in "xyzm"}
+        ij = torch.arange(2)
+        out = {}
+        for name, a, bb in (("s2", "m", "z"), ("s1", "x", "y")):
+            rows = ((t[a + "_lo"].long()[..., None, None] + ij[:, None])
+                    * vox_res + t[bb + "_lo"].long()[..., None, None]
+                    + ij[None, :])
+            wts = w[a][..., :, None] * w[bb][..., None, :]
+            out[name + "_rows"] = rows.reshape(-1).to(device)
+            out[name + "_w"] = wts.reshape(-1, 4, 1).to(device)
+        _cache[key] = out
+    return _cache[key]
+
+
+def sample_rays_transpose(g: torch.Tensor, vox_res: int, sph_res: int = 128,
+                          z_res: int = 256, rho_res: int = RHO_RES,
+                          compute_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """The transpose of the sampling map: g (B, Ph, Th, S) -> (B, V, V, V)
+    float32.  Stage 2: each sample's cotangent, times its 4 tap weights,
+    is added into c's (m, z) rows; stage 1 likewise into the volume's
+    (x, y) rows.  Both run as ``index_add_`` over rows of B*Th (B*V)
+    contiguous columns."""
+    tab = _scatter_tables(vox_res, sph_res, z_res, rho_res, compute_dtype,
+                          g.device)
+    b, v, m = g.shape[0], vox_res, rho_res
+    cols = g.float().permute(1, 3, 0, 2).reshape(sph_res * z_res, -1)
+    src = (tab["s2_w"] * cols[:, None, :]).reshape(-1, cols.shape[1])
+    gc = cols.new_zeros(m * v, cols.shape[1]).index_add_(
+        0, tab["s2_rows"], src)                         # ((m, z), (b, th))
+    cols = gc.view(m, v, b, sph_res).permute(3, 0, 2, 1).reshape(
+        sph_res * m, b * v)                             # ((th, m), (b, z))
+    src = (tab["s1_w"] * cols[:, None, :]).reshape(-1, cols.shape[1])
+    gv = cols.new_zeros(v * v, b * v).index_add_(0, tab["s1_rows"], src)
+    return gv.view(v, v, b, v).permute(2, 0, 1, 3).contiguous()
+
+
+def _samples(vox, vox_res, sph_res, z_res, rho_res, compute_dtype):
+    c = stage1(vox, vox_res, sph_res, z_res, rho_res, compute_dtype)
+    return stage2_samples(c, vox_res, sph_res, z_res, rho_res, compute_dtype)
+
+
+class _SampleRays(torch.autograd.Function):
+    """Forward: K1, K5.  Backward: the transpose of the linear map."""
+
+    @staticmethod
+    def forward(ctx, vox, *args):
+        ctx.args = args
+        return _samples(vox, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (sample_rays_transpose(g, *ctx.args),) + (None,) * 5
+
+
+class _RenderExpectedDepth(torch.autograd.Function):
+    """Forward: K1, K2.  Backward: the samples again from the saved volume
+    (K1, K5), the epilogue's gradient, the transpose."""
+
+    @staticmethod
+    def forward(ctx, vox, *args):
+        ctx.args = args
+        ctx.save_for_backward(vox)
+        c = stage1(vox, *args)
+        return stage2(c, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        (vox,) = ctx.saved_tensors
+        p = _samples(vox, *ctx.args)
+        with torch.enable_grad():
+            p.requires_grad_(True)
+            (gp,) = torch.autograd.grad(expected_depth(p), p, g)
+        return (sample_rays_transpose(gp, *ctx.args),) + (None,) * 5
+
+
+def sample_rays(vox: torch.Tensor, vox_res: int, sph_res: int = 128,
+                z_res: int = 256, rho_res: int = RHO_RES,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, V, V, V) volume -> (B, Ph, Th, S) float32 ray samples: K1 then
+    K5 (their plain versions on the CPU); differentiable in the volume."""
+    args = (vox_res, sph_res, z_res, rho_res, compute_dtype)
+    if torch.is_grad_enabled() and vox.requires_grad:
+        return _SampleRays.apply(vox, *args)
+    return _samples(vox, *args)
+
+
 def render_expected_depth(vox: torch.Tensor, vox_res: int,
                           sph_res: int = 128, z_res: int = 256,
                           rho_res: int = RHO_RES,
                           compute_dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
     """(B, V, V, V) clipped occupancy -> (B, R, R) expected-depth map:
-    K1 then K2 (their plain versions on the CPU)."""
-    c = stage1(vox, vox_res, sph_res, z_res, rho_res, compute_dtype)
-    return stage2(c, vox_res, sph_res, z_res, rho_res, compute_dtype)
+    K1 then K2 (their plain versions on the CPU); differentiable in the
+    volume."""
+    args = (vox_res, sph_res, z_res, rho_res, compute_dtype)
+    if torch.is_grad_enabled() and vox.requires_grad:
+        return _RenderExpectedDepth.apply(vox, *args)
+    c = stage1(vox, *args)
+    return stage2(c, *args)

@@ -34,3 +34,11 @@ def sph_pad(sph_nhwc: torch.Tensor, padding_margin: int = 16) -> torch.Tensor:
     rows = torch.cat([sph_nhwc[:, :1].expand(n, m, w, c), sph_nhwc,
                       sph_nhwc[:, -1:].expand(n, m, w, c)], dim=1)
     return torch.cat([rows[:, :, w - m:], rows, rows[:, :, :m]], dim=2)
+
+
+def sph_pad_numpy(sph_chw: np.ndarray, padding_margin: int = 16) -> np.ndarray:
+    """Host-side twin of :func:`sph_pad` for (C, H, W) ground truths: wrap
+    the longitude columns, then replicate the pole rows."""
+    m = padding_margin
+    out = np.pad(sph_chw, ((0, 0), (0, 0), (m, m)), "wrap")
+    return np.pad(out, ((0, 0), (m, m), (0, 0)), "edge")

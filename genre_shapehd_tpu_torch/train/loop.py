@@ -1,0 +1,164 @@
+"""Training loop: the model's steps over a loader, with the logger bus
+(counterpart of ``genre_shapehd_tpu/train/loop.py``, one device).
+
+A worker thread fetches the next batch and copies it to the device while
+the current step runs.  Metrics come back as device scalars; reading
+them waits for the device, so they are read every ``opt.log_every``
+steps (default 1: every step), in order.  With ``opt.log_time`` each
+step ends in a device synchronise, so ``batch_time`` is the step's wall
+time on the device.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core.checkpoint import load_checkpoint, resume_path, save_checkpoint
+from ..data.loader import InfiniteLoader
+from .loggers import ComposeLogger, LogCumulator
+from .state import reference_payload_to_state, state_to_reference_payload
+
+
+class Trainer:
+    def __init__(self, model, opt, logger: Optional[ComposeLogger] = None):
+        self.model = model
+        self.opt = opt
+        self.logger = logger or ComposeLogger([])
+        self.cumulator = LogCumulator()
+        self.logger.add_logger(self.cumulator)
+        self.start_epoch = 0
+        self.initial_loss_eval = float("inf")
+
+    # ------------------------------------------------------------ state io
+    def initialize(self, seed: int = 0) -> None:
+        self.model.init_state(seed)
+
+    def save(self, path: str, epoch: int,
+             loss_eval: Optional[float] = None) -> None:
+        save_checkpoint(path, state_to_reference_payload(
+            self.model, epoch, loss_eval if loss_eval is not None
+            else self.initial_loss_eval))
+
+    def load(self, path: str) -> Dict:
+        payload = load_checkpoint(path)
+        reference_payload_to_state(payload, self.model)
+        self.start_epoch = int(payload.get("epoch", 0))
+        self.initial_loss_eval = float(payload.get("loss_eval", np.inf))
+        return payload
+
+    def maybe_resume(self, logdir: str, resume: int) -> Optional[Dict]:
+        path = resume_path(logdir, resume)
+        if path is None:
+            return None
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"resume checkpoint not found: {path}")
+        return self.load(path)
+
+    # ------------------------------------------------------------- batches
+    def _prefetched(self, data_iter, steps: int):
+        """One step ahead: the next batch is built and copied to the
+        device on a worker thread while the current step runs."""
+        q: "queue.Queue" = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def worker():
+            try:
+                for _ in range(steps):
+                    if stop.is_set():
+                        return
+                    t0 = time.time()
+                    batch = next(data_iter)
+                    q.put((self.model.device_batch(batch), batch,
+                           time.time() - t0))
+            except Exception as e:          # re-raised in the main thread
+                q.put(e)
+
+        threading.Thread(target=worker, daemon=True).start()
+        try:
+            for _ in range(steps):
+                item = q.get()
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+    def _run_phase(self, epoch: int, data_iter, steps: int,
+                   training: bool) -> Dict[str, float]:
+        logger = self.logger
+        logger.train() if training else logger.eval()
+        logger.on_epoch_begin(epoch)
+        log_every = max(int(getattr(self.opt, "log_every", 1) or 1), 1) \
+            if training else 1
+        log_time = getattr(self.opt, "log_time", False)
+        sync = log_time and self.model.device.type == "cuda"
+        pending = []
+
+        def flush():
+            for i0, m_dev, base in pending:
+                m = {k: float(v) for k, v in m_dev.items()}
+                logger.on_batch_begin(i0)
+                logger.on_batch_end(i0, {**base, **m})
+            pending.clear()
+
+        t_end = time.time()
+        for i, (dev_batch, batch, data_time) in enumerate(
+                self._prefetched(data_iter, steps)):
+            if training:
+                metrics = self.model.train_step(dev_batch)
+            else:
+                metrics, _ = self.model.eval_step(dev_batch)
+            if sync:
+                torch.cuda.synchronize(self.model.device)
+            base = {"size": len(next(iter(dev_batch.values())))}
+            if log_time:
+                base["batch_time"] = time.time() - t_end
+                base["data_time"] = data_time
+            pending.append((i, metrics, base))
+            if len(pending) >= log_every:
+                flush()
+            t_end = time.time()
+        flush()
+        epoch_log = self.cumulator.get_epoch_log()
+        logger.on_epoch_end(epoch, epoch_log)
+        return epoch_log
+
+    def train_epoch_pair(self, epoch: int, train_iter, eval_loader,
+                         steps_per_epoch: int,
+                         eval_batches: int) -> Dict[str, float]:
+        """One train phase, then one eval phase."""
+        log = self._run_phase(epoch, train_iter, steps_per_epoch,
+                              training=True)
+        if eval_batches:
+            log = self._run_phase(epoch, iter(eval_loader), eval_batches,
+                                  training=False)
+        return log
+
+    # --------------------------------------------------------------- train
+    def fit(self, train_loader, eval_loader, epochs: int,
+            steps_per_epoch: int, eval_batches: int,
+            eval_at_start: bool = False) -> Dict[str, float]:
+        self.logger.set_params({
+            "epoch": epochs,
+            "steps_per_epoch": steps_per_epoch,
+            "steps_per_eval": eval_batches,
+            "metrics": self.model.metrics,
+        })
+        self.logger.on_train_begin()
+        if eval_at_start:
+            self._run_phase(self.start_epoch, iter(eval_loader),
+                            eval_batches, training=False)
+        train_iter = InfiniteLoader(train_loader)
+        last: Dict[str, float] = {}
+        for epoch in range(self.start_epoch + 1, epochs + 1):
+            last = self.train_epoch_pair(epoch, train_iter, eval_loader,
+                                         steps_per_epoch, eval_batches)
+        self.logger.on_train_end()
+        return last

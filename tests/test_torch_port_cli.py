@@ -210,8 +210,9 @@ def test_cli_matches_jax_test_on_batch(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing every port module, and reading a JAX checkpoint whose
-    optimizer state pickles optax objects, loads no JAX module."""
+    """Importing every port module (``cli.train`` and the training
+    modules among them), and reading a JAX checkpoint whose optimizer
+    state pickles optax objects, loads no JAX module."""
     import optax
     params = {"Dense_0": {"kernel": np.arange(6.0).reshape(2, 3),
                           "bias": np.zeros(3)}}
@@ -235,15 +236,17 @@ def test_port_imports_no_jax(tmp_path):
         "for m in sys.modules)\n"
         "for m in ('viz.visualizer', 'viz.mcubes', 'cli.eval_chamfer', "
         "'ops.chamfer', 'ops.cuda.chamfer_kernel', "
-        "'ops.cuda.subpixel_kernel'):\n"
+        "'ops.cuda.subpixel_kernel', 'cli.train', 'train.loop', "
+        "'train.state', 'train.loggers', 'data.synthetic', 'ops.voxel', "
+        "'models.marrnet1'):\n"
         "    assert 'genre_shapehd_tpu_torch.' + m in sys.modules, m\n"
         "print(n, bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    # every module, the viz and eval_chamfer ones of the scoring path too
-    assert int(res.stdout.split()[0]) >= 40, res.stdout
+    # every module: the scoring path's and the training path's too
+    assert int(res.stdout.split()[0]) >= 48, res.stdout
 
 
 def test_cli_cuda_without_a_card_raises(tmp_path):

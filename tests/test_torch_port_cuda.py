@@ -1,6 +1,8 @@
 """PyTorch port, CUDA kernels K1 (render_stage1), K2 (render_stage2_scan),
-K3 (deconv_final) and K4 (nn_min_dist) against their plain versions on the
-card.  Skipped where ``torch.cuda.is_available()`` is false.
+K3 (deconv_final), K4 (nn_min_dist) and K5 (render_stage2_samples) against
+their plain versions on the card, the renderer's gradient on the card
+against the CPU's, and one training step on the card.  Skipped where
+``torch.cuda.is_available()`` is false.
 
 On a machine with a GPU and nvcc:
   python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -47,7 +49,8 @@ def test_kernels_match_plain(device, dtype, v, r, z, m):
     c = rk.stage1(vox, v, r, z, m, cd)
     out = rk.stage2(c, v, r, z, m, cd)
     torch.cuda.synchronize()
-    assert rk.launches == {"render_stage1": 1, "render_stage2_scan": 1}
+    assert rk.launches == {"render_stage1": 1, "render_stage2_scan": 1,
+                           "render_stage2_samples": 0}
     c_ref = rk.stage1_plain(vox, v, r, z, m, cd)
     out_ref = rk.stage2_plain(c, v, r, z, m, cd)
     dc = (c.float() - c_ref.float()).abs()
@@ -178,3 +181,85 @@ def test_nn_min_dist_gradient_and_degenerate_clouds(device):
     assert torch.isfinite(s).all() and float(s[0]) < 1e-9
     with pytest.raises(RuntimeError):
         chamfer.nndistance(x1.to(device), x2)
+
+
+@pytest.mark.parametrize("dtype,b,v,r,z,m", [
+    ("float32", 2, 32, 32, 64, 64), ("bfloat16", 2, 32, 32, 64, 64),
+    ("bfloat16", 4, 64, 64, 96, 96)])
+def test_stage2_samples_matches_plain(device, dtype, b, v, r, z, m):
+    cd = getattr(torch, dtype)
+    c = rk.stage1(_volume(b, v, 2, device), v, r, z, m, cd)
+    rk.reset_launches()
+    out = rk.stage2_samples(c, v, r, z, m, cd)
+    torch.cuda.synchronize()
+    assert rk.launches["render_stage2_samples"] == 1
+    assert out.shape == (b, r, r, z) and out.dtype == torch.float32
+    d = (out - rk.stage2_samples_plain(c, v, r, z, m, cd)).abs()
+    if dtype == "float32":
+        assert d.max() < 1e-5, d.max()
+    else:
+        # the plain version rounds t2 to bf16, the kernel does not
+        assert d.max() < 3e-2 and d.mean() < 2e-3, (d.max(), d.mean())
+    with pytest.raises(TypeError):
+        rk.stage2_samples(c.float() if dtype == "bfloat16" else c.bfloat16(),
+                          v, r, z, m, cd)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_render_gradient_on_the_card_matches_cpu(device, dtype):
+    """The card's forward K1 + K2 and backward K1 + K5 + transpose against
+    the CPU's plain path: the gradient relative to its largest entry."""
+    cd = getattr(torch, dtype)
+    v, r, z, m = 32, 32, 64, 64
+    vox = _volume(2, v, 3, device)
+    w = torch.randn((2, r, r), device=device,
+                    generator=torch.Generator(device).manual_seed(1))
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        x = vox.to(dev).clone().requires_grad_(True)
+        rk.reset_launches()
+        out = rk.render_expected_depth(x, v, r, z, m, cd)
+        assert out.grad_fn is not None
+        (out * w.to(dev)).sum().backward()
+        grads.append(x.grad.cpu())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert rk.launches == {"render_stage1": 2,
+                                   "render_stage2_scan": 1,
+                                   "render_stage2_samples": 1}
+    rel = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    # float32: summation order; bf16: the kernels keep t1 / t2 in float32
+    # where the plain versions round them (test_pallas_vjp's bound)
+    assert rel < (1e-4 if dtype == "float32" else 2e-2), rel
+
+
+def test_genre_train_step_on_the_card(device):
+    """One joint float32 step of the GenRe model at the tests' scale on
+    the card: the loss terms match the CPU's step from the same weights,
+    and every kernel of the path launched."""
+    from genre_shapehd_tpu_torch.core.registry import get_dataset, get_model
+    from genre_shapehd_tpu_torch.data.loader import collate
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    cfg = dict(im_size=64, vox_res=32, sph_res=32, z_res=32,
+               padding_margin=16, joint_train=True, no_aug=True, lr=1e-4,
+               surface_weight=10.0)
+    logs = []
+    for dev in ("cuda", "cpu"):
+        model = get_model("genre_full_model")(default_opt(device=dev, **cfg))
+        model.init_state(0)
+        ds = get_dataset("synthetic")(model.opt, "train", model=model)
+        batch = {k: v for k, v in collate([ds[i] for i in range(4)]).items()
+                 if isinstance(v, np.ndarray)}
+        rk.reset_launches()
+        sk.reset_launches()
+        logs.append({k: float(x) for k, x in model.train_step(batch).items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert rk.launches == {"render_stage1": 2,
+                                   "render_stage2_scan": 1,
+                                   "render_stage2_samples": 1}
+            assert sk.launches == {"deconv_final": 1}
+    for k, ref in logs[1].items():
+        assert np.isfinite(logs[0][k])
+        # cuDNN vs CPU convolutions in float32 (TF32 off)
+        assert abs(logs[0][k] - ref) <= 1e-3 * abs(ref) + 1e-5, (k, logs)

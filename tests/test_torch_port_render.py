@@ -163,6 +163,7 @@ def test_kernel_wrappers_take_plain_version_on_cpu():
     out = rk.render_expected_depth(vox, V, R, Z, M, torch.float32)
     assert out.shape == (1, R, R) and torch.isfinite(out).all()
     # no kernel launched on CPU tensors
-    assert rk.launches == {"render_stage1": 0, "render_stage2_scan": 0}
+    assert rk.launches == {"render_stage1": 0, "render_stage2_scan": 0,
+                           "render_stage2_samples": 0}
     with pytest.raises(TypeError):
         rk.stage1(vox, V, R, Z, M, torch.float16)
