@@ -15,8 +15,9 @@ raising on failure:
     bounds), the final deconv K3 (batch 8, Cin=40, S=64, bfloat16) and
     the Chamfer kernel K4 (8 x 8192 points, a ragged pair and the eval
     protocol's 1 x 1024), plus float32 checks at smaller sizes with TF32
-    off; kernel, plain, library and bound times (CUDA events, median of
-    25, L2 flushed before each);
+    off; K1 and K5 also against ``F.grid_sample``, which computes each in
+    one call; kernel, plain, library and bound times (CUDA events, median
+    of 25, L2 flushed before each);
  3. reconstruct: 16 generated photo + mask PNGs, a seeded GenreNet
     exported to a checkpoint in the JAX package's format,
     ``genre_shapehd_tpu_torch.cli.test`` at 256² -> 128³ in bfloat16,
@@ -75,6 +76,14 @@ SOURCES = {
     "deconv_final": "genre_shapehd_tpu_torch/csrc/deconv_final_kernel.cu",
     "nn_min_dist": "genre_shapehd_tpu_torch/csrc/chamfer_kernel.cu",
     "render_stage2_samples": "genre_shapehd_tpu_torch/csrc/render_kernel.cu",
+}
+#: the one PyTorch call that computes each kernel's function (library_ms)
+LIBRARY = {
+    "render_stage1": "F.grid_sample, float32",
+    "render_stage2_scan": None,
+    "deconv_final": "F.conv_transpose3d",
+    "nn_min_dist": "torch.cdist, then min",
+    "render_stage2_samples": "F.grid_sample, float32 c",
 }
 REPLACES = {
     "render_stage1": "genre_shapehd_tpu/ops/pallas/render_kernel.py:170 "
@@ -142,6 +151,45 @@ def volume(b, v, seed, device):
     return vox.clamp(1e-5, 1 - 1e-5)
 
 
+def _grid(a, b, device, batch):
+    import torch
+    g = torch.as_tensor(np.stack([a, b], -1), dtype=torch.float32)
+    return g.to(device).expand(batch, -1, -1, -1).contiguous()
+
+
+def library_grids(b, v, r, z, m, device):
+    """The renderer's two stages as ``F.grid_sample`` grids: each hat-weight
+    pair is a bilinear tap with align_corners=True, and each out-of-range
+    corner gets zero weight, as padding_mode='zeros' gives.  Stage 1 samples
+    the volume's (x, y) plane at (rho cos th, rho sin th), z as channels;
+    stage 2 samples c's (m, z) plane of each theta at (sin ph t, cos ph t),
+    theta as channels."""
+    from genre_shapehd_tpu_torch.ops.render_sph_fast import _rho_max
+    phis = np.deg2rad(np.linspace(0, 180, r * 2 + 1)[1::2])[:, None]
+    thetas = np.deg2rad(np.linspace(0, 360, r + 1)[:-1])[:, None]
+    t = 2.0 * (1.0 - np.linspace(0.0, 1.0, z))[None]
+    rho_max = _rho_max(v)
+    rho = np.linspace(0.0, rho_max, m)[None]
+    # grid[..., 0] indexes the last (W) axis, grid[..., 1] the H axis
+    return (_grid(rho * np.sin(thetas), rho * np.cos(thetas), device, b),
+            _grid(np.cos(phis) * t, 2.0 * np.sin(phis) * t / rho_max - 1.0,
+                  device, b))
+
+
+def library_stage1(vox, grid):
+    """(B, V, V, V) volume -> (B, Z, Th, M): K1's function in one call."""
+    import torch.nn.functional as F
+    return F.grid_sample(vox.permute(0, 3, 1, 2), grid, mode="bilinear",
+                         padding_mode="zeros", align_corners=True)
+
+
+def library_stage2_samples(c, grid):
+    """c (B, Th, M, V) -> (B, Th, Ph, S): K5's function in one call."""
+    import torch.nn.functional as F
+    return F.grid_sample(c, grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=True)
+
+
 # ---------------------------------------------------------------- phases
 def phase_kernels(device):
     import torch
@@ -174,6 +222,12 @@ def phase_kernels(device):
     d = (out - full_ref).abs()
     errs["renderer"] = (float(d.max()), float(d.mean()))
     check(d.max() < 3e-2 and d.mean() < 2e-3, f"K1+K2 vs plain {errs}")
+    # the library call, float32, against K1: K1's bounds (it rounds the
+    # volume, its weights and c to bf16)
+    g1 = library_grids(b, v, r, z, m, device)[0]
+    d = (library_stage1(vox, g1).permute(0, 2, 3, 1) - c.float()).abs()
+    errs["library_stage1"] = (float(d.max()), float(d.mean()))
+    check(d.max() < 1.6e-2 and d.mean() < 1e-3, f"grid_sample vs K1 {errs}")
     log("[kernels] bf16 main-path shapes, max/mean abs err:",
         json.dumps(errs))
 
@@ -185,8 +239,14 @@ def phase_kernels(device):
     o32 = rk.stage2(c32, *args)
     dc = float((c32 - rk.stage1_plain(vox32, *args)).abs().max())
     do = float((o32 - rk.stage2_plain(c32, *args)).abs().max())
-    check(dc < 1e-5 and do < 1e-5, f"f32 K1 {dc} K2 {do}")
-    log(f"[kernels] f32 {s}: K1 max err {dc:.3g}, K2 max err {do:.3g}")
+    dl = float((library_stage1(vox32, library_grids(**s, device=device)[0])
+                .permute(0, 2, 3, 1) - c32).abs().max())
+    # grid_sample places its taps from float32 grid coordinates, off by up
+    # to ~1e-5 of a voxel at 128 voxels: 1e-4 for it
+    check(dc < 1e-5 and do < 1e-5 and dl < 1e-4,
+          f"f32 K1 {dc} K2 {do} grid_sample vs K1 {dl}")
+    log(f"[kernels] f32 {s}: K1 max err {dc:.3g}, K2 max err {do:.3g}, "
+        f"grid_sample vs K1 {dl:.3g}")
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
     ms = {
@@ -201,6 +261,11 @@ def phase_kernels(device):
         "render_stage2_scan": time_ms(
             lambda: rk.stage2_plain(c, v, r, z, m, bf), flush),
     }
+    # K1 is one grid_sample (float32, the volume's dtype); K2's scan has
+    # no library call
+    library_ms = {"render_stage1": time_ms(lambda: library_stage1(vox, g1),
+                                           flush),
+                  "render_stage2_scan": None}
     # bytes: every input read once, every output written once
     tap_bytes_1 = r * m * (4 + 8) * 2           # x, y tables
     tap_bytes_2 = r * z * (4 + 8) * 2           # z, m tables
@@ -214,7 +279,7 @@ def phase_kernels(device):
         "render_stage2_scan": bound(c_bytes + tap_bytes_2 + b * r * r * 4,
                                     24.0 * b * r * r * z),
     }
-    return errs, ms, plain_ms, bounds
+    return errs, ms, plain_ms, library_ms, bounds
 
 
 def phase_deconv_final(device, flush):
@@ -762,24 +827,41 @@ def phase_stage2_samples(device, flush):
               f"{err}")
         worst = (max(worst[0], err[0]), max(worst[1], err[1]))
         del out, d
+    # the library call at batch 4 on c in float32 (a bfloat16 grid would
+    # misplace the taps), against K5: K2's bounds (K5 rounds its weights)
+    b = TRAIN["batch"]
+    c_f32 = c.float()
+    g2 = library_grids(b, v, r, z, m, device)[1]
+    d = (library_stage2_samples(c_f32, g2).permute(0, 2, 1, 3)
+         - rk.stage2_samples(c, v, r, z, m, bf)).abs()
+    lib_err = (float(d.max()), float(d.mean()))
+    check(lib_err[0] < 3e-2 and lib_err[1] < 2e-3,
+          f"grid_sample vs K5 {lib_err}")
+    del d
     # float32 at a smaller size: summation order only
     a = (64, 64, 128, 96, torch.float32)
     c32 = rk.stage1(volume(2, 64, 6, device), *a)
-    e32 = float((rk.stage2_samples(c32, *a)
-                 - rk.stage2_samples_plain(c32, *a)).abs().max())
-    check(e32 < 1e-5, f"f32 K5 {e32}")
+    k32 = rk.stage2_samples(c32, *a)
+    e32 = float((k32 - rk.stage2_samples_plain(c32, *a)).abs().max())
+    l32 = float((library_stage2_samples(
+        c32, library_grids(2, *a[:4], device)[1]).permute(0, 2, 1, 3)
+        - k32).abs().max())
+    # grid_sample's float32 grid coordinates: 1e-4, as for K1
+    check(e32 < 1e-5 and l32 < 1e-4, f"f32 K5 {e32}, grid_sample {l32}")
     log(f"[kernels] K5 render_stage2_samples bf16 at batch {MAIN['b']} and "
         f"{TRAIN['batch']}: max/mean abs err vs plain {worst[0]:.3g}/"
-        f"{worst[1]:.3g}; f32 (2, 64^3 -> 64^2 x 128) max err {e32:.3g}")
-    b = TRAIN["batch"]
+        f"{worst[1]:.3g}, vs grid_sample (f32) {lib_err[0]:.3g}/"
+        f"{lib_err[1]:.3g}; f32 (2, 64^3 -> 64^2 x 128) max err {e32:.3g}, "
+        f"grid_sample {l32:.3g}")
     ms = time_ms(lambda: rk.stage2_samples(c, v, r, z, m, bf), flush)
     plain_ms = time_ms(lambda: rk.stage2_samples_plain(c, v, r, z, m, bf),
                        flush)
+    library_ms = time_ms(lambda: library_stage2_samples(c_f32, g2), flush)
     # bytes: c read once, the float32 samples written once, the z / m tap
     # tables; per sample 6 multiply-adds of the taps
     bnd = bound(c.numel() * 2 + b * r * r * z * 4 + r * z * (4 + 8) * 2,
                 12.0 * b * r * r * z)
-    return worst, ms, plain_ms, bnd
+    return worst, ms, plain_ms, library_ms, bnd
 
 
 def phase_render_grad(device):
@@ -1013,8 +1095,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
 
-    errs, ms, plain_ms, bounds = phase_kernels(device)
-    library_ms = {"render_stage1": None, "render_stage2_scan": None}
+    errs, ms, plain_ms, library_ms, bounds = phase_kernels(device)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
     k3 = "deconv_final"
     errs[k3], ms[k3], plain_ms[k3], library_ms[k3], bounds[k3] = \
@@ -1024,9 +1105,8 @@ def main() -> int:
     ms[k4], plain_ms[k4], library_ms[k4], bounds[k4] = (
         k4_times[timed][k] for k in ("ms", "plain_ms", "library_ms", "bound"))
     k5 = "render_stage2_samples"
-    errs[k5], ms[k5], plain_ms[k5], bounds[k5] = phase_stage2_samples(
-        device, flush)
-    library_ms[k5] = None
+    errs[k5], ms[k5], plain_ms[k5], library_ms[k5], bounds[k5] = \
+        phase_stage2_samples(device, flush)
     del flush
     phase_render_grad(device)
     launches, ckpt, out_dir = phase_main_path(device, work)
@@ -1048,7 +1128,7 @@ def main() -> int:
             "max_abs_err": errs[name][0], "mean_abs_err": errs[name][1],
             "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bms,
             "bound_us": bms * 1e3, "bound_by": by,
-            "library_ms": library_ms[name]})
+            "library_ms": library_ms[name], "library_call": LIBRARY[name]})
     # K4 is timed at 8 x 8192 x 8192 points; the scoring path gives it the
     # eval protocol's 1 x 1024 x 1024, where launch latency dominates
     ev = k4_times[eval_shape]

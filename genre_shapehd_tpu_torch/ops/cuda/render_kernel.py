@@ -20,9 +20,9 @@ A CUDA tensor either launches the kernel or raises.
 
 Gradients.  :func:`render_expected_depth` (the counterpart of
 ``render_expected_depth_pallas``) and :func:`sample_rays` (of
-``sample_rays_pallas``) go through an ``autograd.Function`` when the
-volume requires a gradient, and are plain calls otherwise (under
-``inference_mode`` nothing is recorded).  The sampling map vox -> samples is linear; its
+``sample_rays_pallas``) are ``autograd.Function`` subclasses, which record
+nothing when the volume needs no gradient or under ``no_grad`` /
+``inference_mode``.  The sampling map vox -> samples is linear; its
 transpose (:func:`sample_rays_transpose`) is two scatter-adds over the
 tap tables, in float32, on either device, as ``_sample_bwd`` takes XLA's
 transpose.  The renderer's backward saves only the volume: it recomputes
@@ -376,10 +376,8 @@ def sample_rays(vox: torch.Tensor, vox_res: int, sph_res: int = 128,
                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, V, V, V) volume -> (B, Ph, Th, S) float32 ray samples: K1 then
     K5 (their plain versions on the CPU); differentiable in the volume."""
-    args = (vox_res, sph_res, z_res, rho_res, compute_dtype)
-    if torch.is_grad_enabled() and vox.requires_grad:
-        return _SampleRays.apply(vox, *args)
-    return _samples(vox, *args)
+    return _SampleRays.apply(vox, vox_res, sph_res, z_res, rho_res,
+                             compute_dtype)
 
 
 def render_expected_depth(vox: torch.Tensor, vox_res: int,
@@ -390,8 +388,5 @@ def render_expected_depth(vox: torch.Tensor, vox_res: int,
     """(B, V, V, V) clipped occupancy -> (B, R, R) expected-depth map:
     K1 then K2 (their plain versions on the CPU); differentiable in the
     volume."""
-    args = (vox_res, sph_res, z_res, rho_res, compute_dtype)
-    if torch.is_grad_enabled() and vox.requires_grad:
-        return _RenderExpectedDepth.apply(vox, *args)
-    c = stage1(vox, *args)
-    return stage2(c, *args)
+    return _RenderExpectedDepth.apply(vox, vox_res, sph_res, z_res, rho_res,
+                                      compute_dtype)

@@ -36,11 +36,12 @@ def _get(tree, path):
     return tree
 
 
-def calibrate(params, batch_stats, rgb, sil, cfg=TINY):
+def calibrate(params, batch_stats, rgb, sil, cfg=TINY, train=False):
     """Copies of the JAX-layout trees with (1) the min/max head fixed to
     (1.2, 2.2), (2) net1's depth decoder scaled to output std 30 and (3)
     net2's spherical decoder scaled to output std 1, measured with the
-    port's GenreNet on ``rgb``/``sil``."""
+    port's GenreNet on ``rgb``/``sil``: in eval mode, or with ``train``
+    as a joint train step runs it (every BatchNorm on batch statistics)."""
     from genre_shapehd_tpu_torch.core.convert import jax_to_torch
     from genre_shapehd_tpu_torch.models.genre_full import GenreNet
 
@@ -49,7 +50,7 @@ def calibrate(params, batch_stats, rgb, sil, cfg=TINY):
     head = _get(params, net1 + "MinmaxHead_0/Dense_2")
     head["kernel"] = np.zeros_like(head["kernel"])
     head["bias"] = np.array([1.2, 2.2], np.float32)
-    net = GenreNet(**cfg).eval()
+    net = GenreNet(**cfg, joint_train=train).train(train)
     for path, key, target in (
             (net1 + "decoder_depth/Deconv_1/ConvTranspose_0", "depth", 30.0),
             ("depth_and_inpaint/net2/decoder_spherical/Deconv_1/"
