@@ -16,8 +16,11 @@ raising on failure:
     the Chamfer kernel K4 (8 x 8192 points, a ragged pair and the eval
     protocol's 1 x 1024), plus float32 checks at smaller sizes with TF32
     off; K1 and K5 also against ``F.grid_sample``, which computes each in
-    one call; kernel, plain, library and bound times (CUDA events, median
-    of 25, L2 flushed before each);
+    one call; K1 on the float32 volume against the volume cast to bf16
+    (bit for bit), and one kernel per timed K1 and K3 call (torch.profiler);
+    K1 and K3 at edge shapes (V = 34; odd S, Cin < 16); kernel, plain,
+    library and bound times (CUDA events, median of 25, L2 flushed before
+    each), each kernel's share of its bound and achieved GB/s;
  3. reconstruct: 16 generated photo + mask PNGs, a seeded GenreNet
     exported to a checkpoint in the JAX package's format,
     ``genre_shapehd_tpu_torch.cli.test`` at 256² -> 128³ in bfloat16,
@@ -36,7 +39,9 @@ raising on failure:
     version at the forward's batch-8 and the training's batch-4 shapes,
     bfloat16, and in float32 at a smaller size; the renderer's gradient
     on the card (K1, K2 forward; K1, K5 and the transpose backward)
-    against the CPU's, float32, reduced size; then
+    against the CPU's, float32, reduced size; dec6's backward at batch 4
+    through a second forward and autograd and by convolution_backward;
+    then
     ``genre_shapehd_tpu_torch.cli.train`` at 256² -> 128³, bfloat16,
     batch 4, on the synthetic data, in stage 3 and with --joint_train:
     finite losses, the refine net moved, net1 and net2 only when joint,
@@ -131,12 +136,53 @@ def time_ms(fn, flush, reps=25, warmup=3):
 
 
 def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
-    """Least milliseconds for the work and what sets it: bytes over the
-    memory rate or operations over ``peak`` for their type."""
+    """Least milliseconds for the work, what sets it (bytes over the
+    memory rate or operations over ``peak`` for their type), and the
+    bytes."""
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def kernels_launched(*calls) -> dict:
+    """Device kernels by name that ``calls`` launch, in one torch.profiler
+    session.  It has to be the process's first: after one, a session's
+    kernels can arrive in the next one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("Memcpy", "Memset"))}
+
+
+def sass_count(source: str, opcode: str):
+    """Instructions ``opcode`` per kernel in the built library of
+    ``source``, from ``cuobjdump -sass``."""
+    from genre_shapehd_tpu_torch.ops.cuda import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(build.library_path(source))],
+                         capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+            continue
+        # "/*0230*/  [@P0] HMMA.16816.F32.BF16 R4, ... ;  /* 0x... */"
+        words = line.split("*/", 1)[-1].split()
+        words = words[1:] if words[:1] and words[0].startswith("@") else words
+        if name and words and words[0].split(".")[0] == opcode:
+            counts[name] += 1
+    return counts
 
 
 def volume(b, v, seed, device):
@@ -230,6 +276,11 @@ def phase_kernels(device):
     check(d.max() < 1.6e-2 and d.mean() < 1e-3, f"grid_sample vs K1 {errs}")
     log("[kernels] bf16 main-path shapes, max/mean abs err:",
         json.dumps(errs))
+    # K1 reads the float32 volume itself and rounds each element as a
+    # cast to bf16 would: the same c as from the cast volume, bit for bit
+    check(torch.equal(c, rk.stage1(vox.to(bf), v, r, z, m, bf)),
+          "K1 on the float32 volume differs from K1 on the cast volume")
+    log("[kernels] K1 on the float32 volume: bit for bit the cast volume's c")
 
     # float32 at a smaller size, TF32 off: summation order only (1e-5)
     s = dict(b=2, v=64, r=64, z=128, m=96)
@@ -271,8 +322,10 @@ def phase_kernels(device):
     tap_bytes_2 = r * z * (4 + 8) * 2           # z, m tables
     c_bytes = b * r * m * v * 2
     bounds = {
-        # 4 weight products + 4 fma per element of c
-        "render_stage1": bound(b * v ** 3 * 2 + c_bytes + tap_bytes_1,
+        # the volume in its own dtype (float32 on the main path), c in
+        # bf16; 4 weight products + 4 fma per element of c
+        "render_stage1": bound(vox.numel() * vox.element_size() + c_bytes
+                               + tap_bytes_1,
                                12.0 * b * r * m * v),
         # per sample: 6 mul/add per 2 z-taps x 2, 3 for the m-taps,
         # clip 2, log1p and exp 1 each, scan and depth sums 5
@@ -752,7 +805,7 @@ def device_profile(prof, n, wall_ms, own_names):
 
 
 OWN_KERNELS = ("stage1_kernel", "stage2_scan_kernel", "stage2_samples_kernel",
-               "deconv_final_kernel")
+               "deconv_final_")
 
 
 def phase_throughput(device, ckpt):
@@ -790,6 +843,8 @@ def phase_throughput(device, ckpt):
     log(f"[throughput] GenreNet forward, batch 8, bf16, 256^2 -> 128^3: "
         f"{ms:.2f} ms (better of the two K3 turns) -> {8e3 / ms:.1f} "
         f"recon/s; peak memory {peak:.2f} GiB")
+    # after the timed turns, before the profiled passes: the first session
+    kernel_counts(device)
 
     n = 3
     with profile(activities=[ProfilerActivity.CPU,
@@ -862,6 +917,127 @@ def phase_stage2_samples(device, flush):
     bnd = bound(c.numel() * 2 + b * r * r * z * 4 + r * z * (4 + 8) * 2,
                 12.0 * b * r * r * z)
     return worst, ms, plain_ms, library_ms, bnd
+
+
+def phase_edge_shapes(device):
+    """K1 and K3 off the main path's shapes against their plain versions,
+    at the bounds above, with a synchronize after each call so that a
+    fault shows where it happened: K1 at V = 34 (no multiple of the vector
+    width: the scalar path) and batch 1, from float32 and bfloat16
+    volumes, in both compute dtypes; K3 at (B, Cin, S) = (1, 7, 9),
+    (2, 40, 33), (1, 3, 5) in bfloat16 and float32 (S not a multiple of
+    8: the CUDA cores)."""
+    import torch
+    import torch.nn.functional as F
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    f32, bf = torch.float32, torch.bfloat16
+    worst = {}
+    for vdt in (f32, bf):
+        for cd in (f32, bf):
+            vox = volume(1, 34, 11, device).to(vdt)
+            args = (34, 32, 64, 48, cd)
+            c = rk.stage1(vox, *args)
+            torch.cuda.synchronize()
+            d = (c.float() - rk.stage1_plain(vox, *args).float()).abs()
+            err = (float(d.max()), float(d.mean()))
+            ok = err[0] < 1e-5 if cd == f32 else (err[0] < 1.6e-2
+                                                   and err[1] < 1e-3)
+            check(ok, f"K1 at V=34, {vdt} volume, {cd}: {err}")
+            worst[f"K1 V=34 {str(vdt)[6:]} -> {str(cd)[6:]}"] = err[0]
+    g = torch.Generator(device=device).manual_seed(12)
+    for b, cin, s in ((1, 7, 9), (2, 40, 33), (1, 3, 5)):
+        for dt in (bf, f32):
+            x = torch.randn((b, cin, s, s, s), generator=g,
+                            device=device).to(dt)
+            w = torch.randn((cin, 1, 4, 4, 4), generator=g,
+                            device=device) * 0.2
+            bias = torch.full((1,), 0.3, device=device)
+            out = sk.deconv_final(x, w, bias)
+            torch.cuda.synchronize()
+            check(out.shape == (b, 1, 2 * s, 2 * s, 2 * s)
+                  and out.dtype == dt, f"K3 output {tuple(out.shape)}")
+            ref = sk.deconv_final_plain(x, w, bias).float()
+            scale = float(ref.abs().max())
+            d = (out.float() - ref).abs()
+            if dt == f32:
+                check(float(d.max()) <= 1e-5 * scale,
+                      f"f32 K3 at {(b, cin, s)}: {float(d.max())}")
+            else:
+                exact = F.conv_transpose3d(x.float(), w.to(bf).float(), bias,
+                                           stride=2, padding=1)
+                e = float((out.float() - exact).abs().max())
+                check(float(d.max()) <= 1e-2 * scale
+                      and float(d.mean()) <= 1e-3 * scale
+                      and e <= 2.0 ** -8 * float(exact.abs().max()),
+                      f"K3 at {(b, cin, s)}: {float(d.max())} "
+                      f"{float(d.mean())} vs plain, {e} vs float32")
+            worst[f"K3 {(b, cin, s)} {str(dt)[6:]}"] = float(d.max()) / scale
+    log(f"[kernels] edge shapes, max abs err (K3: of the scale) vs plain: "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
+
+
+def kernel_counts(device):
+    """The timed K1 and K3 calls at the main path's shapes launch one
+    kernel each: no cast of the volume, the input or the weight."""
+    import torch
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    b, v, r, z, m = (MAIN[k] for k in "bvrzm")
+    vox = volume(b, v, 0, device)
+    b, cin, s = (DEC6[k] for k in ("b", "cin", "s"))
+    x = torch.zeros((b, cin, s, s, s), dtype=torch.bfloat16, device=device)
+    w = torch.zeros((cin, 1, 4, 4, 4), device=device)
+    bias = torch.zeros(1, device=device)
+    calls = (lambda: rk.stage1(vox, v, r, z, m, torch.bfloat16),
+             lambda: sk.deconv_final(x, w, bias))
+    for fn in calls:                         # tables and attributes set up
+        fn()
+    names = kernels_launched(*calls)
+    own = {k: sum(n for name, n in names.items() if k in name)
+           for k in ("stage1_kernel", "deconv_final_mma_kernel")}
+    check(own == {"stage1_kernel": 1, "deconv_final_mma_kernel": 1}
+          and sum(names.values()) == 2,
+          f"kernels of one K1 and one K3 call: {names}")
+    log(f"[kernels] device kernels of one timed K1 call (float32 volume) and "
+        f"one K3 call (bf16 x, float32 weight), torch.profiler: "
+        f"{json.dumps(own)}, no other")
+
+
+def dec6_backward_ms(device):
+    """dec6's backward at the training shape (batch 4, Cin 40, S 64,
+    bf16), all three gradients: through the forward again and
+    autograd.grad, and by ``deconv_final_backward`` (one
+    ``aten.convolution_backward``, no forward).  Returns both medians."""
+    import torch
+    import torch.nn.functional as F
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    b, cin, s = TRAIN["batch"], DEC6["cin"], DEC6["s"]
+    bf = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(13)
+    x = torch.randn((b, cin, s, s, s), generator=g, device=device).to(bf)
+    w = torch.randn((cin, 1, 4, 4, 4), generator=g, device=device) * 0.05
+    bias = torch.full((1,), 0.1, device=device)
+    grad = torch.randn((b, 1, 2 * s, 2 * s, 2 * s), generator=g,
+                       device=device).to(bf)
+
+    def before():
+        with torch.enable_grad():
+            xr, wr, br = (t.detach().requires_grad_(True)
+                          for t in (x, w, bias))
+            out = F.conv_transpose3d(xr, wr.to(bf), br.to(bf), stride=2,
+                                     padding=1)
+            return torch.autograd.grad(out, [xr, wr, br], grad)
+
+    def after():
+        return sk.deconv_final_backward(grad, x, w)
+
+    for old, new in zip(before(), after()):
+        scale = float(old.float().abs().max())
+        d = float((old.float() - new.float()).abs().max())
+        check(d <= 1e-2 * scale, f"dec6 backward: {d} at scale {scale}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
+    return time_ms(before, flush), time_ms(after, flush)
 
 
 def phase_render_grad(device):
@@ -1090,6 +1266,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {src}: {line.strip()}")
+    # K3's bf16 path runs its products on the tensor cores: HMMA in SASS
+    hmma = {k: n for k, n in sass_count("deconv_final_kernel.cu", "HMMA")
+            .items() if "deconv_final" in k}
+    check(any(n > 0 for k, n in hmma.items() if "mma_kernel" in k),
+          f"no HMMA in K3's tensor-core kernel: {hmma}")
+    log(f"[build] HMMA instructions in deconv_final_kernel.cu's SASS per "
+        f"kernel (cuobjdump -sass): {json.dumps(hmma)}")
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -1108,11 +1291,16 @@ def main() -> int:
     errs[k5], ms[k5], plain_ms[k5], library_ms[k5], bounds[k5] = \
         phase_stage2_samples(device, flush)
     del flush
+    phase_edge_shapes(device)
     phase_render_grad(device)
     launches, ckpt, out_dir = phase_main_path(device, work)
     launches.update(phase_score(device, work, out_dir))
     phase_reference(device)
     fwd_ms = phase_throughput(device, ckpt)
+    bwd_before, bwd_after = dec6_backward_ms(device)
+    log(f"[train] dec6 backward, batch 4, bf16, all three gradients: "
+        f"{bwd_before:.3f} ms through the forward again and autograd.grad, "
+        f"{bwd_after:.3f} ms by convolution_backward")
     runs, train_launches = phase_train(device, work)
     # K5 runs on the training path only: its launches are the joint run's
     launches[k5] = train_launches[k5]
@@ -1120,7 +1308,7 @@ def main() -> int:
 
     kernels = []
     for name in ("render_stage1", "render_stage2_scan", k3, k4, k5):
-        bms, by = bounds[name]
+        bms, by, nbytes = bounds[name]
         check(launches[name] > 0, f"{name} was not launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -1128,6 +1316,8 @@ def main() -> int:
             "max_abs_err": errs[name][0], "mean_abs_err": errs[name][1],
             "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bms,
             "bound_us": bms * 1e3, "bound_by": by,
+            "bound_share": bms / ms[name],
+            "achieved_gb_per_s": nbytes / ms[name] / 1e6,
             "library_ms": library_ms[name], "library_call": LIBRARY[name]})
     # K4 is timed at 8 x 8192 x 8192 points; the scoring path gives it the
     # eval protocol's 1 x 1024 x 1024, where launch latency dominates
@@ -1141,6 +1331,13 @@ def main() -> int:
     # K5 is timed at the training batch of 4
     by_name[k5].update(timed_shape=[TRAIN["batch"], MAIN["r"], MAIN["r"],
                                     MAIN["z"]])
+    by_name[k3].update(hmma_in_sass=sum(hmma.values()))
+    for k in kernels:
+        log(f"[kernels] {k['name']}: {k['ms']:.4f} ms, bound "
+            f"{k['bound_us']:.1f} us ({k['bound_by']}), "
+            f"{100 * k['bound_share']:.1f} % of the bound, "
+            f"{k['achieved_gb_per_s']:.0f} GB/s; plain {k['plain_ms']:.4f} "
+            f"ms; library {k['library_ms']}")
     log(f"[summary] card: {card}; forward {fwd_ms:.2f} ms = "
         f"{8e3 / fwd_ms:.1f} recon/s (batch 8, bf16); training step, batch "
         f"4, bf16: stage 3 {runs['stage3']['step_ms']:.1f} ms, joint "

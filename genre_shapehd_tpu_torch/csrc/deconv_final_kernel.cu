@@ -11,33 +11,57 @@
 // the interleaved output directly; no phase tensor exists.
 //
 // Layout (PyTorch's): x (B, Cin, S, S, S), weight (Cin, 1, 4, 4, 4) given
-// as float32 (Cin, 64), bias (1,) float32 -> out (B, 1, 2S, 2S, 2S).
-// Per axis, output o = 2i + a (a in {0,1}) takes inputs i + a - 1 + d with
-// tap 3 - a - 2d, d in {0,1}, zero outside [0, S).
+// as float32 (Cin, 64) and rounded to x's dtype by the kernel, bias (1,)
+// float32 -> out (B, 1, 2S, 2S, 2S).
+// Per axis, output o = 2p + a (a in {0,1}) takes inputs p + d - 1 for
+// the offsets d in {0,1,2} with d - a in {0,1}, through tap 3 + a - 2d,
+// zero outside [0, S).
 //
 // What bounds it: device-memory bytes.  At the main path's shape (B=8,
-// Cin=40, S=64, bf16) it reads 168 MB and writes 34 MB (about 60 us at
-// 3.35 TB/s); its 5.4 G multiply-adds take about 160 us at the float32
-// rate of the CUDA cores.  The design follows:
-//   - one thread per INPUT position (i, j, k) computes the 2x2x2 output
-//     block it owns (all 8 phases), and kRows = 4 such positions along
-//     i: per channel it loads the 6 x 3 x 3 input neighbourhood once (54
-//     loads) and spends 256 multiply-adds on it, instead of 8 loads per 8
-//     multiply-adds per output voxel;
-//   - threads run along k, the contiguous axis of x, so every load is
-//     coalesced; the two outputs (2k, 2k+1) of a row are stored as one
-//     pair, so stores are coalesced too;
-//   - the whole weight (Cin * 64 floats, 10 KB at Cin = 40) sits in
-//     shared memory; a warp reads the same address (broadcast), 4 taps per
-//     load.
+// Cin=40, S=64, bf16) it reads 168 MB and writes 34 MB, 60 us at
+// 3.35 TB/s.  Its 5.4 G multiply-adds take 160 us at the float32 rate of
+// the CUDA cores, so the bf16 path runs them on the tensor cores:
+//   - the layer is a GEMM per tile: A = positions x (27 offsets x Cin),
+//     never formed in memory; B = (27 x Cin_pad) x 8 output phases, the
+//     weight with its structured zeros (ops/cuda/subpixel_kernel.py::
+//     pack_weight is the same packing in PyTorch);
+//   - mma.sync.m16n8k16 (bf16 in, float32 sums): 16 positions along k, 16
+//     channels of one offset, the 8 phases.  ldmatrix.trans reads A
+//     straight from a channel-major tile in shared memory.  The offset
+//     along k is not a shifted view (a one-element shift breaks
+//     ldmatrix's 16-byte rows): the sums are kept over unshifted rows and
+//     shifted by warp shuffles in the epilogue.  Each k offset but the
+//     middle one feeds one output parity f only, so offsets dk = 0 (f = 0
+//     columns) and dk = 2 (f = 1 columns) share one product: 18 products
+//     per (16 positions, 16 channels) instead of 27, 29 GFLOP in all at
+//     Cin_pad = 48, 29 us at the dense bf16 peak;
+//   - a tile is a 4 x 4 block of (i, j) rows, one warp each, over the
+//     whole k axis (S <= 64).  Per chunk of 16 channels one TMA copy
+//     stages the tile with a one-row halo in i and j, (6, 6, 16, 64)
+//     bf16 = 72 KB, zero-filled outside the volume and past Cin, with the
+//     128-byte swizzle that keeps ldmatrix free of bank conflicts; the
+//     halo makes the copies 2.25x the input, from L2.  (With all threads
+//     issuing cp.async copies instead, the issue stalled the products:
+//     copies and products took their sum, not their maximum.)  Blocks are
+//     persistent, one per SM, and walk tiles; two stages, so the next
+//     chunk's copy (the next tile's first chunk at a tile's end) runs
+//     during the current chunk's products and the epilogue.  B of every
+//     chunk is built once per block, rounded from the float32 weight, in
+//     shared memory (14 KB at Cin = 40);
+//   - the epilogue adds the float32 bias, rounds once to bf16 and stores
+//     the pair (2k, 2k+1) of one output row as 4 bytes (phases are ordered
+//     (a, e, f), so a thread's accumulator columns 2t, 2t + 1 are f = 0, 1).
+// float32 (dtype 0, the tests' 1e-5 checks: TF32 cannot hold them) and
+// the bf16 shapes this tiling does not take (S > 64, S not a multiple of
+// 8: TMA's strides are whole 16-byte units, Cin > 288) run a CUDA-core
+// kernel: one thread per 4 input positions, the weight in shared memory.
+//
 // Accumulation and the bias add are float32; the result is rounded once
 // to the output type (as the Pallas kernel does).
-// Later work: tensor cores (the contraction is a (positions x 27 Cin) by
-// (27 Cin x 8) product), and staging the input slab in shared memory.
-//
 // `dtype` 0 = float32 x/out, 1 = bfloat16.  The entry point returns
 // cudaGetLastError() after its launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,6 +75,15 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -59,16 +92,20 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// ------------------------------------------------------------- CUDA cores
+// float32, and bf16 at S > 64: one thread per kRows input positions.
 template <typename T>
-__global__ void deconv_final_kernel(const T* __restrict__ x,
-                                    const float* __restrict__ w,
-                                    const float* __restrict__ bias,
-                                    T* __restrict__ out, int B, int Cin,
-                                    int S) {
+__global__ void deconv_final_fma_kernel(const T* __restrict__ x,
+                                        const float* __restrict__ w,
+                                        const float* __restrict__ bias,
+                                        T* __restrict__ out, int B, int Cin,
+                                        int S) {
   constexpr int R = kRows;
   extern __shared__ float4 sw4[];            // (Cin, 64) floats
   float* sw = reinterpret_cast<float*>(sw4);
-  for (int t = threadIdx.x; t < Cin * 64; t += blockDim.x) sw[t] = __ldg(w + t);
+  // the weight, rounded to T (the value a cast of it to T gives)
+  for (int t = threadIdx.x; t < Cin * 64; t += blockDim.x)
+    sw[t] = to_f32(from_f32<T>(__ldg(w + t)));
   __syncthreads();
 
   // thread n owns input positions (i0 .. i0+R-1, j, k) of batch item b
@@ -170,12 +207,299 @@ int launch(const void* x, const float* w, const float* bias, void* out, int B,
   if (grid > 0x7fffffff || smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        deconv_final_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        deconv_final_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  deconv_final_kernel<T><<<(unsigned)grid, block, smem, st>>>(
+  deconv_final_fma_kernel<T><<<(unsigned)grid, block, smem, st>>>(
       static_cast<const T*>(x), w, bias, static_cast<T*>(out), B, Cin, S);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ tensor cores
+constexpr int kTI = 4, kTJ = 4;              // (i, j) rows per tile, a warp each
+constexpr int kWarps = kTI * kTJ;
+constexpr int kHI = kTI + 2, kHJ = kTJ + 2;  // the staged tile's halo extents
+constexpr int kCh = 16;                      // channels per chunk (mma's k)
+constexpr int kKP = 64;                      // positions per row: 128 bytes
+constexpr int kNT = kKP / 16;                // m-tiles per row
+constexpr int kStage = kHI * kHJ * kCh * kKP * 2;  // 72 KB
+constexpr int kBWords = 9 * 2 * 8 * 8;       // a chunk's B, bf16 pairs
+
+// 1 KB of slack to align the stages, two stages, B of every chunk, two
+// mbarriers.
+__host__ __device__ constexpr int smem_bytes(int chunks) {
+  return 1024 + 2 * kStage + chunks * kBWords * 4 + 16;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// B of every chunk, packed as the mma wants it.  Two products per (di,
+// dj): set 1 takes dk = 1 for all 8 phases; set 0 takes dk = 0 for the
+// phases f = 0 and dk = 2 for f = 1 (each k offset but the middle one
+// feeds one f only).  bs[((chunk * 9 + didj) * 2 + set) * 64 + g * 8 + 2t
+// + h] is the bf16 pair B[c0 + 2t + 8h + {0,1}][g], rounded from the
+// float32 weight: lane (g, t)'s B fragment is one 8-byte load.
+__device__ void build_b(const float* __restrict__ w, uint32_t* bs, int Cin,
+                        int chunks) {
+  for (int n = threadIdx.x; n < chunks * kBWords; n += blockDim.x) {
+    const int slot = n & 7, g = (n >> 3) & 7, set = (n >> 6) & 1;
+    const int didj = (n >> 7) % 9, chunk = (n >> 7) / 9;
+    const int di = didj / 3, dj = didj % 3;
+    const int a = g >> 2, e = (g >> 1) & 1, f = g & 1;
+    const int dk = set ? 1 : 2 * f;
+    const int ch = chunk * kCh + 2 * (slot >> 1) + 8 * (slot & 1);
+    const bool ok = (unsigned)(di - a) <= 1u && (unsigned)(dj - e) <= 1u &&
+                    (unsigned)(dk - f) <= 1u;
+    const int tap = ((3 + a - 2 * di) * 4 + (3 + e - 2 * dj)) * 4 +
+                    (3 + f - 2 * dk);
+    const float lo = ok && ch < Cin ? __ldg(w + ch * 64 + tap) : 0.f;
+    const float hi = ok && ch + 1 < Cin ? __ldg(w + (ch + 1) * 64 + tap) : 0.f;
+    bs[n] = pack_bf16x2(lo, hi);
+  }
+}
+
+// A stage holds the tile of chunk c0 at (b, i0, j0): rows r = (hi * kHJ
+// + hj) * kCh + c of 64 positions k (128 bytes) for input (i0 - 1 + hi,
+// j0 - 1 + hj, channel c0 + c), zero outside the volume, past S and past
+// Cin (TMA's fill).  The 16-byte chunk k / 8 of row r sits at chunk
+// (k / 8) ^ (r % 8): TMA's 128-byte swizzle, which puts the 8 channel rows
+// an ldmatrix reads in 8 bank groups.
+//
+// Persistent: block n walks tiles n, n + gridDim.x, ...; a tile is batch
+// item b, rows i0 .. i0+kTI-1, j0 .. j0+kTJ-1, all k.  Its steps are the
+// channel chunks.  Thread 0 starts the next step's copy (the next tile's
+// first chunk at a tile's end) into the other stage before the current
+// step computes.  Warp (wi, wj) owns row (i0 + wi, j0 + wj).
+__global__ void __launch_bounds__(kWarps * 32, 1)
+deconv_final_mma_kernel(__grid_constant__ const CUtensorMap tmap,
+                        const float* __restrict__ w,
+                        const float* __restrict__ bias,
+                        __nv_bfloat16* __restrict__ out, int B, int Cin,
+                        int S) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  const int TJn = (S + kTJ - 1) / kTJ, TIn = (S + kTI - 1) / kTI;
+  const int tiles = B * TIn * TJn, chunks = (Cin + kCh - 1) / kCh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wi = warp / kTJ, wj = warp % kTJ;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t* bs = reinterpret_cast<uint32_t*>(smem + 2 * kStage);
+  const uint32_t bar0 = smem_addr(bs + chunks * kBWords);
+  auto issue = [&](int tile, int n, int buf) {   // thread 0 only
+    const uint32_t bar = bar0 + 8 * buf;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(kStage) : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+        ::"r"(smem_addr(smem + buf * kStage)),
+          "l"(reinterpret_cast<uint64_t>(&tmap)), "r"(0), "r"(n * kCh),
+          "r"((tile % TJn) * kTJ - 1), "r"((tile / TJn % TIn) * kTI - 1),
+          "r"(tile / (TJn * TIn)), "r"(bar)
+        : "memory");
+  };
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (blockIdx.x < tiles) issue(blockIdx.x, 0, 0);
+  }
+  build_b(w, bs, Cin, chunks);
+  __syncthreads();
+
+  // this lane's ldmatrix row: matrix q = lane / 8 holds channels
+  // 8 * (q / 2) + 0..7 at positions 8 * (q % 2) + 0..7 of an m-tile; its
+  // row's swizzle is lane % 8
+  const int q = lane >> 3;
+  const uint32_t lane_row = ((lane & 7) + 8 * (q >> 1)) * 128;
+  uint32_t lane_chunk[kNT];
+#pragma unroll
+  for (int m = 0; m < kNT; ++m)
+    lane_chunk[m] = ((2 * m + (q & 1)) ^ (lane & 7)) << 4;
+  const float bv = __ldg(bias);
+  const int64_t O = 2 * (int64_t)S;
+  const int up = (lane + 4) & 31, dn = (lane + 28) & 31;
+  const uint2* b2 = reinterpret_cast<const uint2*>(bs);
+  int buf = 0;
+  uint32_t phase = 0;                        // per stage, its next parity
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int i0 = (tile / TJn % TIn) * kTI, j0 = (tile % TJn) * kTJ;
+    const int bi = tile / (TJn * TIn);
+    float acc[2][kNT][4];                    // [set][m-tile][fragment]
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int m = 0; m < kNT; ++m)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[s][m][r] = 0.f;
+    for (int n = 0; n < chunks; ++n, buf ^= 1) {
+      const bool last = n + 1 == chunks;
+      if (threadIdx.x == 0 && (!last || tile + (int)gridDim.x < tiles))
+        issue(last ? tile + (int)gridDim.x : tile, last ? 0 : n + 1, buf ^ 1);
+      mbar_wait(bar0 + 8 * buf, (phase >> buf) & 1);
+      phase ^= 1u << buf;
+      const uint32_t xa = smem_addr(smem + buf * kStage) + lane_row;
+      const uint2* bn = b2 + n * (kBWords / 2);
+#pragma unroll
+      for (int didj = 0; didj < 9; ++didj) {
+        const int di = didj / 3, dj = didj % 3;
+        const uint2 b0 = bn[(didj * 2) * 32 + g * 4 + t];
+        const uint2 b1 = bn[(didj * 2 + 1) * 32 + g * 4 + t];
+        const uint32_t row = xa + ((wi + di) * kHJ + wj + dj) * (kCh * 128);
+#pragma unroll
+        for (int m = 0; m < kNT; ++m) {
+          uint32_t a[4];
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+              "[%4];\n"
+              : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+              : "r"(row + lane_chunk[m]));
+          mma_bf16(acc[0][m], a, b0);
+          mma_bf16(acc[1][m], a, b1);
+        }
+      }
+      __syncthreads();                       // the stage is refilled next
+    }
+
+    // Offset dk reads input p + dk - 1, so out[p] = C_1[p] + C_0[p - 1]
+    // for f = 0 and C_1[p] + C_0[p + 1] for f = 1 (set 0 holds dk = 0 in
+    // the f = 0 columns and dk = 2 in the f = 1 columns).  Fragment
+    // entries [0], [1] are row g, columns 2t (f = 0), 2t + 1 (f = 1); [2],
+    // [3] row g + 8.  Row neighbours sit 4 lanes away, or in the other
+    // half, or in the neighbouring m-tile.
+    const int i = i0 + wi, j = j0 + wj, a = t >> 1, e = t & 1;
+    __nv_bfloat16* orow = out + (int64_t)bi * O * O * O +
+                          ((2 * (int64_t)i + a) * O + 2 * j + e) * O;
+#pragma unroll
+    for (int m = 0; m < kNT; ++m) {
+      const float lo_prev = __shfl_sync(0xffffffffu, acc[0][m][0], dn);
+      const float hi_prev = __shfl_sync(0xffffffffu, acc[0][m][2], dn);
+      const float tile_prev =
+          m > 0 ? __shfl_sync(0xffffffffu, acc[0][m - 1][2], dn) : 0.f;
+      const float lo_next = __shfl_sync(0xffffffffu, acc[0][m][1], up);
+      const float hi_next = __shfl_sync(0xffffffffu, acc[0][m][3], up);
+      const float tile_next =
+          m + 1 < kNT ? __shfl_sync(0xffffffffu, acc[0][m + 1][1], up) : 0.f;
+      const float o0 = acc[1][m][0] + (g > 0 ? lo_prev : tile_prev);
+      const float o1 = acc[1][m][1] + (g < 7 ? lo_next : hi_next);
+      const float o2 = acc[1][m][2] + (g > 0 ? hi_prev : lo_prev);
+      const float o3 = acc[1][m][3] + (g < 7 ? hi_next : tile_next);
+      const int p = m * 16 + g;
+      if (i < S && j < S && p < S)
+        *reinterpret_cast<uint32_t*>(orow + 2 * p) =
+            pack_bf16x2(o0 + bv, o1 + bv);
+      if (i < S && j < S && p + 8 < S)
+        *reinterpret_cast<uint32_t*>(orow + 2 * (p + 8)) =
+            pack_bf16x2(o2 + bv, o3 + bv);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched through the runtime (no
+// -lcuda at build time).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static bool asked = false;
+  if (!asked) {
+    asked = true;
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// x as a 5-D tensor (k, c, j, i, b), innermost first, and the box of one
+// stage: 64 k x 16 channels x 6 j x 6 i of one item, 128-byte swizzle.
+bool encode_x(CUtensorMap* map, const void* x, int B, int Cin, int S) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn || S % 8 != 0 || (uintptr_t)x % 16 != 0) return false;
+  const cuuint64_t s = (cuuint64_t)S, e = 2;
+  const cuuint64_t dims[5] = {s, (cuuint64_t)Cin, s, s, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {s * s * s * e, s * e, s * s * e,
+                                 (cuuint64_t)Cin * s * s * s * e};
+  const cuuint32_t box[5] = {kKP, kCh, kHJ, kHI, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor-core kernel for a bf16 call it takes (S <= 64 and a multiple
+// of 8, B of every chunk beside the two stages in shared memory: Cin <=
+// 288), one block per SM (its shared memory admits no second), each
+// walking its share of the tiles.  Returns -1 for a call it does not take.
+int launch_mma(const void* x, const float* w, const float* bias, void* out,
+               int B, int Cin, int S, cudaStream_t st) {
+  CUtensorMap map{};
+  if (S > kKP || smem_bytes((Cin + kCh - 1) / kCh) > 227 * 1024 ||
+      (uintptr_t)out % 4 != 0 || !encode_x(&map, x, B, Cin, S))
+    return -1;
+  static int sms[64];                        // SMs per device; 0 until asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(deconv_final_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               227 * 1024);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t tiles =
+      (int64_t)B * ((S + kTI - 1) / kTI) * ((S + kTJ - 1) / kTJ);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(tiles < sms[dev] ? tiles : sms[dev]);
+  deconv_final_mma_kernel<<<grid, kWarps * 32,
+                            smem_bytes((Cin + kCh - 1) / kCh), st>>>(
+      map, w, bias, static_cast<__nv_bfloat16*>(out), B, Cin, S);
   return (int)cudaGetLastError();
 }
 
@@ -191,8 +515,11 @@ int deconv_final(const void* x, const float* w, const float* bias, void* out,
   if (B < 1 || Cin < 1 || S < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(x, w, bias, out, B, Cin, S, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, bias, out, B, Cin, S, st);
+  if (dtype == 1) {
+    const int err = launch_mma(x, w, bias, out, B, Cin, S, st);
+    return err >= 0 ? err
+                    : launch<__nv_bfloat16>(x, w, bias, out, B, Cin, S, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,14 +17,26 @@
 // weight matrices (ops/render_sph_fast.py::tap_tables).
 //
 // What bounds them: device-memory bytes.  At batch 8 (V=128, R=128,
-// M=192, S=256, bf16) K1 reads the 33.6 MB volume and writes the 50.3 MB
-// cylindrical intermediate c; K2 reads c and writes 0.5 MB.  The
-// arithmetic (~0.25 G multiply-adds plus one log1p and one exp per
+// M=192, S=256, bf16 c) K1 reads the 67.1 MB float32 volume (in its own
+// dtype: no cast kernel runs before it) and writes the 50.3 MB cylindrical
+// intermediate c, 35.2 us at 3.35 TB/s; K2 reads c and writes 0.5 MB.
+// The arithmetic (~0.25 G multiply-adds plus one log1p and one exp per
 // sample) is far below the float32 peak.  The design follows:
-//   K1: one thread per output element, threads along z, which is the
-//       contiguous axis of both the volume (B,X,Y,Z) and c (B,Th,M,Z), so
-//       every load and store is coalesced; the taps are uniform across a
-//       row, so the branch that skips zero-weight taps never diverges.
+//   K1: a streaming gather.  A block owns a run of 64 rows m of one
+//       (b, th): consecutive m walk one ray of the (x, y) plane, so
+//       neighbouring rows gather the same volume columns, from L1.  The
+//       block loads the run's tap tables once, coalesced, into shared
+//       memory.  Each thread moves 16 bytes of c per access (8 bf16 or 4
+//       float32 along z, the contiguous axis of the volume (B,X,Y,Z) and
+//       of c (B,Th,M,Z)), reads the volume in its own dtype (float32 or
+//       bf16) with 16-byte loads and rounds each element to the compute
+//       dtype in registers, the value a cast followed by a load gives.
+//       At V=128 a row is 16 threads, a 256-thread block covers 16 rows
+//       a step and 4 steps a run: 3,072 blocks, about 3 waves over the
+//       132 SMs.  The taps are uniform across a row, so the branch that
+//       skips zero-weight taps never diverges within it.  Where V is not
+//       a multiple of the vector width, or a pointer is not 16-byte
+//       aligned, the same kernel runs with one element per access.
 //   K2: one warp per ray (b, ph, th); each lane owns S/32 consecutive
 //       samples and keeps them in registers.  The 4 gathers per sample
 //       hit the (b, th) slab of c, 192x128 elements; the warps of a block
@@ -40,7 +52,8 @@
 // Later work: stage the c[b, th] slab in shared memory, or fuse K1 into
 // K2 per (b, th).
 //
-// Accumulation is float32.  `dtype` 0 = float32 volume/c, 1 = bfloat16.
+// Accumulation is float32.  `dtype` 0 = float32 c, 1 = bfloat16 c; K1's
+// `in_dtype` codes the volume's dtype the same way.
 // Each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
@@ -62,39 +75,149 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Rounds a float32 value to the compute dtype and back: what a cast of
+// the volume to that dtype followed by a load gives.
+template <typename Tc> __device__ __forceinline__ float to_compute(float x);
+template <> __device__ __forceinline__ float to_compute<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_compute<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// VEC consecutive elements of type Tin at p (aligned to VEC * sizeof(Tin)
+// bytes), each rounded to the compute dtype Tc, as float32.
+template <typename Tin, typename Tc, int VEC>
+__device__ __forceinline__ void load_vec(const Tin* p, float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    v[0] = to_compute<Tc>(to_f32(p[0]));
+  } else {
+    constexpr int kWords = VEC * (int)sizeof(Tin) / 4;
+    uint32_t w[kWords];
+    if constexpr (kWords % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < kWords / 4; ++i) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + i);
+        w[4 * i] = u.x; w[4 * i + 1] = u.y;
+        w[4 * i + 2] = u.z; w[4 * i + 3] = u.w;
+      }
+    } else {
+      static_assert(kWords == 2, "8-byte loads");
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = u.x; w[1] = u.y;
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      float f;
+      if constexpr (sizeof(Tin) == 4) {
+        f = __uint_as_float(w[k]);
+      } else {                               // bf16: element 2i is the low half
+        f = __uint_as_float((k & 1) ? (w[k >> 1] & 0xffff0000u)
+                                    : (w[k >> 1] << 16));
+      }
+      v[k] = to_compute<Tc>(f);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+// VEC float32 values rounded to Tc, stored as one 16-byte access (VEC > 1).
+template <typename Tc, int VEC>
+__device__ __forceinline__ void store_vec(Tc* p, const float (&a)[VEC]) {
+  if constexpr (VEC == 1) {
+    p[0] = from_f32<Tc>(a[0]);
+  } else if constexpr (sizeof(Tc) == 4) {
+    static_assert(VEC == 4, "16-byte stores");
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+    static_assert(VEC == 8, "16-byte stores");
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16x2(a[0], a[1]), pack_bf16x2(a[2], a[3]),
+                   pack_bf16x2(a[4], a[5]), pack_bf16x2(a[6], a[7]));
+  }
+}
+
+constexpr int kS1Threads = 256;
+constexpr int kS1Run = 64;                   // rows m per block
+
 // c[b, th, m, z] = sum_{i,j in {0,1}} wx_i * wy_j * vox[b, x0+i, y0+j, z]
-// One block per output row (b, th, m); its threads walk z.
-template <typename T>
-__global__ void stage1_kernel(const T* __restrict__ vox, T* __restrict__ c,
-                              const int* __restrict__ x_lo,
-                              const float2* __restrict__ x_w,
-                              const int* __restrict__ y_lo,
-                              const float2* __restrict__ y_w, int B, int V,
-                              int Th, int M) {
-  const int64_t row = blockIdx.x;            // (b * Th + th) * M + m
-  const int tm = (int)(row % ((int64_t)Th * M));
-  const int b = (int)(row / ((int64_t)Th * M));
-  const int x0 = __ldg(x_lo + tm), y0 = __ldg(y_lo + tm);
-  const float2 wx = __ldg(x_w + tm), wy = __ldg(y_w + tm);
-  const float wxs[2] = {wx.x, wx.y};
-  const float wys[2] = {wy.x, wy.y};
-  const T* base = vox + (int64_t)b * V * V * V;
-  T* dst = c + row * V;
-  for (int z = threadIdx.x; z < V; z += blockDim.x) {
-    float acc = 0.f;
+// Block = a run of kS1Run rows m of one (b, th); each thread owns VEC
+// consecutive z of a row (VEC = 16 bytes of c, or 1 on the scalar path)
+// and walks the run's rows in steps of kS1Threads * VEC / V.
+template <typename Tin, typename Tc, int VEC>
+__global__ void __launch_bounds__(kS1Threads)
+stage1_kernel(const Tin* __restrict__ vox, Tc* __restrict__ c,
+              const int* __restrict__ x_lo, const float2* __restrict__ x_w,
+              const int* __restrict__ y_lo, const float2* __restrict__ y_w,
+              int V, int Th, int M) {
+  __shared__ int s_col[kS1Run];              // x0 * V + y0
+  __shared__ float4 s_w[kS1Run];             // wx0, wx1, wy0, wy1
+  const int runs = (M + kS1Run - 1) / kS1Run;
+  const int64_t bt = blockIdx.x / runs;      // b * Th + th
+  const int m0 = (int)(blockIdx.x % runs) * kS1Run;
+  const int th = (int)(bt % Th);
+  const int b = (int)(bt / Th);
+  const int rows = min(kS1Run, M - m0);
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    const int t = th * M + m0 + r;
+    const float2 wx = __ldg(x_w + t), wy = __ldg(y_w + t);
+    s_col[r] = __ldg(x_lo + t) * V + __ldg(y_lo + t);
+    s_w[r] = make_float4(wx.x, wx.y, wy.x, wy.y);
+  }
+  __syncthreads();
+  const int nc = V / VEC;                    // chunks of a row
+  const Tin* base = vox + (int64_t)b * V * V * V;
+  Tc* dst = c + (bt * M + m0) * (int64_t)V;
+#pragma unroll 2
+  for (int item = threadIdx.x; item < rows * nc; item += kS1Threads) {
+    const int r = item / nc;
+    const int z = (item - r * nc) * VEC;
+    const int col = s_col[r];
+    const float4 w4 = s_w[r];
+    const float wxs[2] = {w4.x, w4.y};
+    const float wys[2] = {w4.z, w4.w};
+    float acc[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
-      if (wxs[a] == 0.f) continue;
+      if (wxs[a] == 0.f) continue;           // uniform across the row
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         if (wys[e] == 0.f) continue;
-        const float v =
-            to_f32(base[((int64_t)(x0 + a) * V + (y0 + e)) * V + z]);
-        acc = fmaf(wxs[a] * wys[e], v, acc);
+        float v[VEC];
+        load_vec<Tin, Tc, VEC>(base + (int64_t)(col + a * V + e) * V + z, v);
+        const float wgt = wxs[a] * wys[e];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] = fmaf(wgt, v[k], acc[k]);
       }
     }
-    dst[z] = from_f32<T>(acc);
+    store_vec<Tc, VEC>(dst + (int64_t)r * V + z, acc);
   }
+}
+
+template <typename Tin, typename Tc>
+int launch_stage1(const void* vox, void* c, const int* x_lo,
+                  const float2* x_w, const int* y_lo, const float2* y_w,
+                  int B, int V, int Th, int M, cudaStream_t st) {
+  constexpr int kVec = 16 / (int)sizeof(Tc);
+  const int64_t grid = (int64_t)B * Th * ((M + kS1Run - 1) / kS1Run);
+  if (grid <= 0 || grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const bool aligned = ((uintptr_t)vox % 16 == 0) && ((uintptr_t)c % 16 == 0);
+  const Tin* in = static_cast<const Tin*>(vox);
+  Tc* out = static_cast<Tc*>(c);
+  if (aligned && V % kVec == 0)
+    stage1_kernel<Tin, Tc, kVec><<<(unsigned)grid, kS1Threads, 0, st>>>(
+        in, out, x_lo, x_w, y_lo, y_w, V, Th, M);
+  else                                       // the scalar path
+    stage1_kernel<Tin, Tc, 1><<<(unsigned)grid, kS1Threads, 0, st>>>(
+        in, out, x_lo, x_w, y_lo, y_w, V, Th, M);
+  return (int)cudaGetLastError();
 }
 
 // One warp per ray (b, ph, th): samples -> clip -> stop probability ->
@@ -228,30 +351,26 @@ int dispatch_stage2(const void* c, float* out, const int* z_lo,
 
 extern "C" {
 
-// vox (B, V, V, V) -> c (B, Th, M, V); tap tables x_lo/y_lo (Th, M) int32,
-// x_w/y_w (Th, M, 2) float32.
-int render_stage1(const void* vox, void* c, int dtype, const int* x_lo,
-                  const float* x_w, const int* y_lo, const float* y_w, int B,
-                  int V, int Th, int M, void* stream) {
+// vox (B, V, V, V) in `in_dtype` -> c (B, Th, M, V) in `dtype`; tap
+// tables x_lo/y_lo (Th, M) int32, x_w/y_w (Th, M, 2) float32.
+int render_stage1(const void* vox, void* c, int in_dtype, int dtype,
+                  const int* x_lo, const float* x_w, const int* y_lo,
+                  const float* y_w, int B, int V, int Th, int M,
+                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int block = 128;
-  const int64_t rows = (int64_t)B * Th * M;
-  if (rows <= 0 || rows > 0x7fffffff || V < 2) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)rows;
+  if (V < 2 || M < 1) return (int)cudaErrorInvalidValue;
   const float2* xw = reinterpret_cast<const float2*>(x_w);
   const float2* yw = reinterpret_cast<const float2*>(y_w);
-  if (dtype == 0) {
-    stage1_kernel<float><<<grid, block, 0, st>>>(
-        static_cast<const float*>(vox), static_cast<float*>(c), x_lo, xw,
-        y_lo, yw, B, V, Th, M);
-  } else if (dtype == 1) {
-    stage1_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(vox),
-        static_cast<__nv_bfloat16*>(c), x_lo, xw, y_lo, yw, B, V, Th, M);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  using bf16 = __nv_bfloat16;
+  if (in_dtype == 0 && dtype == 0)
+    return launch_stage1<float, float>(vox, c, x_lo, xw, y_lo, yw, B, V, Th, M, st);
+  if (in_dtype == 0 && dtype == 1)
+    return launch_stage1<float, bf16>(vox, c, x_lo, xw, y_lo, yw, B, V, Th, M, st);
+  if (in_dtype == 1 && dtype == 0)
+    return launch_stage1<bf16, float>(vox, c, x_lo, xw, y_lo, yw, B, V, Th, M, st);
+  if (in_dtype == 1 && dtype == 1)
+    return launch_stage1<bf16, bf16>(vox, c, x_lo, xw, y_lo, yw, B, V, Th, M, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // c (B, Th, M, V) -> out (B, Ph, Th) float32; tap tables z_lo/m_lo

@@ -152,7 +152,7 @@ def _library():
     if _lib is None:
         lib = build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.render_stage1.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p]
+        lib.render_stage1.argtypes = [p, p, i, i, p, p, p, p, i, i, i, i, p]
         lib.render_stage1.restype = i
         lib.render_stage2_scan.argtypes = [p, p, i, p, p, p, p,
                                            i, i, i, i, i, i, p]
@@ -195,14 +195,18 @@ def _check_shape(t: torch.Tensor, shape, what: str) -> None:
 def stage1(vox: torch.Tensor, vox_res: int, sph_res: int = 128,
            z_res: int = 256, rho_res: int = RHO_RES,
            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """K1: (B, V, V, V) volume -> c (B, Th, M, V) in ``compute_dtype``."""
+    """K1: (B, V, V, V) volume -> c (B, Th, M, V) in ``compute_dtype``.
+    The kernel reads a float32 or bfloat16 volume as it is and rounds each
+    element to ``compute_dtype`` itself; another dtype is cast first."""
     _check_shape(vox, (vox_res,) * 3, "render_stage1 volume")
     code = _dtype_code(compute_dtype)
     if vox.device.type == "cpu":
         return stage1_plain(vox, vox_res, sph_res, z_res, rho_res,
                             compute_dtype)
     _on_cuda(vox, "render_stage1")
-    vox = vox.to(compute_dtype).contiguous()
+    if vox.dtype not in _DTYPE_CODE:
+        vox = vox.to(compute_dtype)
+    vox = vox.contiguous()
     taps = device_taps(vox_res, sph_res, z_res, rho_res, compute_dtype,
                        vox.device)
     b = vox.shape[0]
@@ -212,7 +216,8 @@ def stage1(vox: torch.Tensor, vox_res: int, sph_res: int = 128,
     with torch.cuda.device(vox.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.render_stage1(
-            _ptr(vox), _ptr(c), code, _ptr(taps["x_lo"]), _ptr(taps["x_w"]),
+            _ptr(vox), _ptr(c), _DTYPE_CODE[vox.dtype], code,
+            _ptr(taps["x_lo"]), _ptr(taps["x_w"]),
             _ptr(taps["y_lo"]), _ptr(taps["y_w"]), b, vox_res, sph_res,
             rho_res, ctypes.c_void_p(stream))
         launches["render_stage1"] += 1

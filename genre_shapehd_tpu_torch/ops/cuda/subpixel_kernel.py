@@ -21,8 +21,16 @@ plain version in bfloat16 rounds more than once inside the library (the
 sum, the bias, their sum), so the two differ by up to two bfloat16 steps
 of the output.
 
-The gradient differentiates the plain version (the JAX package has no
-backward kernel either: ``_df_bwd`` differentiates ``_final_ref_xla``).
+On the tensor cores the kernel computes the layer as a GEMM per block:
+the 27 neighbour offsets of each input position times the channels,
+against :func:`pack_weight`'s (27, Cin_pad, 8) weight with its structured
+zeros, into the 8 output phases.  :func:`deconv_final_gemm` is the same
+contraction in PyTorch, so that the CPU tests hold the formulation.
+
+The gradient (:func:`deconv_final_backward`) is the plain version's,
+computed by ``aten.convolution_backward`` without running the forward
+again; the JAX package has no backward kernel either (``_df_bwd`` is the
+VJP of ``_final_ref_xla``).
 """
 
 from __future__ import annotations
@@ -59,6 +67,54 @@ def deconv_final_plain(x: torch.Tensor, weight: torch.Tensor,
     return F.conv_transpose3d(x, weight, bias, stride=2, padding=1)
 
 
+def pack_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(Cin, 1, 4, 4, 4) -> B (27, Cin_pad, 8), Cin_pad = Cin rounded up to
+    16: B[d, c, g] for the offset d = (di, dj, dk) in {0,1,2}^3 and the
+    output phase g = (a, e, f) in {0,1}^3 is the tap (3+a-2di, 3+e-2dj,
+    3+f-2dk) of channel c where every d - phase is 0 or 1, else 0; padded
+    channels are 0.  The kernel builds the same B in shared memory."""
+    cin = weight.shape[0]
+    b = weight.new_zeros((27, -(-cin // 16) * 16, 8))
+    for d in range(27):
+        di, dj, dk = d // 9, d // 3 % 3, d % 3
+        for g in range(8):
+            a, e, f = g >> 2, g >> 1 & 1, g & 1
+            if 0 <= di - a <= 1 and 0 <= dj - e <= 1 and 0 <= dk - f <= 1:
+                b[d, :cin, g] = weight[:, 0, 3 + a - 2 * di, 3 + e - 2 * dj,
+                                       3 + f - 2 * dk]
+    return b
+
+
+def deconv_final_gemm(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """The kernel's formulation in PyTorch: x padded by one voxel, its 27
+    shifted views (B, 27, Cin, S, S, S) contracted with
+    :func:`pack_weight` into 8 phases per input position, the phases
+    interleaved into (B, 1, 2S, 2S, 2S), plus bias."""
+    bsz, cin, s = x.shape[0], x.shape[1], x.shape[2]
+    xp = F.pad(x, (1, 1, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, :, d // 9:d // 9 + s, d // 3 % 3:d // 3 % 3 + s,
+                           d % 3:d % 3 + s] for d in range(27)], 1)
+    ph = torch.einsum("bdcijk,dcg->bijkg", cols,
+                      pack_weight(weight)[:, :cin].to(x.dtype))
+    out = ph.reshape(bsz, s, s, s, 2, 2, 2).permute(0, 1, 4, 2, 5, 3, 6)
+    return out.reshape(bsz, 1, 2 * s, 2 * s, 2 * s) + bias.to(x.dtype)
+
+
+def deconv_final_backward(grad: torch.Tensor, x: torch.Tensor,
+                          weight: torch.Tensor, needs=(True, True, True)):
+    """Gradients of ``conv_transpose3d(x, weight, bias, stride=2,
+    padding=1)`` with respect to (x, weight, bias), each None where
+    ``needs`` says so: one ``aten.convolution_backward`` in x's dtype, no
+    forward; the weight's and the bias's come back in the weight's
+    dtype."""
+    gx, gw, gb = torch.ops.aten.convolution_backward(
+        grad.to(x.dtype), x, weight.to(x.dtype), [1], [2, 2, 2], [1, 1, 1],
+        [1, 1, 1], True, [0, 0, 0], 1, list(needs))
+    return (gx, None if gw is None else gw.to(weight.dtype),
+            None if gb is None else gb.to(weight.dtype))
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -85,7 +141,8 @@ def _check_args(x: torch.Tensor, weight: torch.Tensor,
 
 def _launch(x: torch.Tensor, weight: torch.Tensor,
             bias: torch.Tensor) -> torch.Tensor:
-    """x already in the compute dtype; weight, bias float32; all CUDA."""
+    """x already in the compute dtype; weight (rounded by the kernel to
+    x's dtype), bias float32; all CUDA."""
     x = x.contiguous()                   # NCDHW; a channels-last x is copied
     w = weight.reshape(x.shape[1], 64).contiguous()
     b = bias.contiguous()
@@ -110,23 +167,13 @@ class _DeconvFinal(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias):
-        ctx.save_for_backward(x, weight, bias)
+        ctx.save_for_backward(x, weight)
         return _launch(x, weight, bias)
 
     @staticmethod
     def backward(ctx, grad):
-        saved = ctx.saved_tensors
-        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
-            x, weight, bias = (t.detach().requires_grad_(True) for t in saved)
-            out = F.conv_transpose3d(x, weight.to(x.dtype), bias.to(x.dtype),
-                                     stride=2, padding=1)
-            grads = torch.autograd.grad(
-                out, [t for t, need in zip((x, weight, bias),
-                                           ctx.needs_input_grad) if need],
-                grad.to(out.dtype))
-        it = iter(grads)
-        return tuple(next(it) if need else None
-                     for need in ctx.needs_input_grad)
+        x, weight = ctx.saved_tensors
+        return deconv_final_backward(grad, x, weight, ctx.needs_input_grad)
 
 
 def deconv_final(x: torch.Tensor, weight: torch.Tensor,
@@ -147,7 +194,6 @@ def deconv_final(x: torch.Tensor, weight: torch.Tensor,
              if torch.is_autocast_enabled("cuda") else x.dtype)
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"deconv_final takes float32 or bfloat16, not {dtype}")
-    # the weight is rounded to the compute dtype like x, then handed to
-    # the kernel as float32; the bias stays float32
-    return _DeconvFinal.apply(x.to(dtype), weight.to(dtype).float(),
-                              bias.float())
+    # the weight goes to the kernel as float32 and is rounded there to the
+    # compute dtype, like x; the bias stays float32
+    return _DeconvFinal.apply(x.to(dtype), weight.float(), bias.float())

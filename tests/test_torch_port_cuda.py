@@ -64,6 +64,35 @@ def test_kernels_match_plain(device, dtype, v, r, z, m):
         assert de.max() < 3e-2 and de.mean() < 2e-3, (de.max(), de.mean())
 
 
+@pytest.mark.parametrize("in_dtype,dtype,b,v,m", [
+    ("float32", "bfloat16", 1, 34, 48), ("bfloat16", "bfloat16", 1, 34, 100),
+    ("float32", "float32", 1, 34, 100), ("bfloat16", "float32", 2, 34, 48),
+    ("bfloat16", "bfloat16", 1, 32, 100), ("float32", "float32", 1, 32, 48)])
+def test_stage1_edge_shapes_and_volume_dtypes(device, in_dtype, dtype, b, v,
+                                              m):
+    """K1 reads a float32 or bfloat16 volume as it is (V = 34 is no
+    multiple of the vector width: the scalar path; V = 32 the vector
+    path; M = 100 ends in a partial run of rows), against its plain
+    version; a float32 volume gives what the same volume cast to the
+    compute dtype gives, bit for bit."""
+    cd = getattr(torch, dtype)
+    vox = _volume(b, v, 4, device).to(getattr(torch, in_dtype))
+    args = (v, 32, 64, m, cd)
+    rk.reset_launches()
+    c = rk.stage1(vox, *args)
+    torch.cuda.synchronize()
+    assert rk.launches["render_stage1"] == 1
+    assert c.shape == (b, 32, m, v) and c.dtype == cd
+    d = (c.float() - rk.stage1_plain(vox, *args).float()).abs()
+    if dtype == "float32":
+        assert d.max() < 1e-5, d.max()
+    else:
+        assert d.max() < 1.6e-2 and d.mean() < 1e-3, (d.max(), d.mean())
+    cast = rk.stage1(vox.to(cd), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(c, cast)
+
+
 def test_cuda_tensor_never_falls_back(device):
     vox = _volume(1, 32, 1, device)
     with pytest.raises(TypeError):
@@ -75,8 +104,13 @@ def test_cuda_tensor_never_falls_back(device):
 
 @pytest.mark.parametrize("dtype,b,cin,s", [
     ("float32", 2, 12, 16), ("float32", 1, 3, 5), ("bfloat16", 2, 40, 16),
-    ("bfloat16", 1, 7, 9)])
+    ("bfloat16", 1, 7, 9), ("float32", 1, 7, 9), ("bfloat16", 1, 3, 5),
+    ("bfloat16", 2, 40, 33), ("float32", 2, 40, 33), ("bfloat16", 1, 20, 24),
+    ("bfloat16", 2, 40, 64), ("bfloat16", 1, 5, 72)])
 def test_deconv_final_matches_plain(device, dtype, b, cin, s):
+    """K3 against its plain version: bf16 on the tensor cores where S is
+    a multiple of 8 up to 64 (16, 24, 64; Cin padded to 16), else (5, 9,
+    33, 72) and in float32 on the CUDA cores."""
     cd = getattr(torch, dtype)
     rng = np.random.default_rng(s)
     x = torch.from_numpy(rng.standard_normal((b, cin, s, s, s)).astype(
@@ -99,6 +133,12 @@ def test_deconv_final_matches_plain(device, dtype, b, cin, s):
         # one bf16 rounding of the output (the plain version also rounds
         # the bias)
         assert d.max() <= 1e-2 * scale and d.mean() <= 1e-3 * scale
+        # half a bf16 step from the float32 result on the inputs as the
+        # kernel reads them (2^-8 of the scale bounds it)
+        exact = torch.nn.functional.conv_transpose3d(
+            x.float(), w.to(cd).float(), bias, stride=2, padding=1)
+        e = float((out.float() - exact).abs().max())
+        assert e <= 2.0 ** -8 * float(exact.abs().max()), e
 
 
 def test_deconv_final_layer_autocast_grad_and_layouts(device):

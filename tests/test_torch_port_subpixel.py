@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from genre_shapehd_tpu.nn.voxel_nets import Deconv3D as FlaxDeconv3D
 from genre_shapehd_tpu.ops.pallas.subpixel_kernel import (
@@ -71,6 +72,34 @@ def test_deconv_final_matches_flax_layer_f32():
     assert np.abs(got - ref).max() <= 1e-5 * float(np.abs(ref).max())
 
 
+@pytest.mark.parametrize("cin", [3, 7, 40])
+@pytest.mark.parametrize("s", [5, 9, 16])
+def test_pack_weight_gemm_matches_conv_transpose_and_xla(cin, s):
+    """The tensor-core kernel's formulation: ``pack_weight``'s (27,
+    Cin_pad, 8) weight contracted with the 27 shifted views of the padded
+    input, phases interleaved, equals ``F.conv_transpose3d`` and the JAX
+    ``_final_ref_xla`` in float32."""
+    x, kernel, bias = _inputs(1, s, cin, seed=100 * cin + s)
+    state = jax_to_torch({"ConvTranspose_0": {"kernel": kernel,
+                                              "bias": bias}}, {})
+    w, bt = state["ConvTranspose_0.weight"], state["ConvTranspose_0.bias"]
+    packed = sk.pack_weight(w)
+    assert packed.shape == (27, -(-cin // 16) * 16, 8)
+    # every phase reads 8 of the 27 offsets, one tap each; padding is zero
+    assert int((packed[:, :cin] != 0).sum()) == 64 * cin
+    assert not packed[:, cin:].any()
+    xt = torch.from_numpy(x).permute(0, 4, 1, 2, 3).contiguous()
+    got = sk.deconv_final_gemm(xt, w, bt)[:, 0].numpy()
+    ref_torch = F.conv_transpose3d(xt, w, bt, stride=2, padding=1)[:, 0]
+    ref_xla = np.asarray(_final_ref_xla(
+        jnp.asarray(x), jnp.asarray(flax_kernel_to_wcat(kernel)),
+        jnp.asarray(bias)))
+    scale = float(np.abs(ref_xla).max())
+    # float32, summation order only: 1e-5 of the output's scale
+    assert np.abs(got - ref_torch.numpy()).max() <= 1e-5 * scale
+    assert np.abs(got - ref_xla).max() <= 1e-5 * scale
+
+
 def test_deconv_final_bf16_within_one_output_rounding():
     x, kernel, bias = _inputs(2, 4, 6, seed=5)
     bf = jnp.bfloat16
@@ -93,9 +122,9 @@ def test_deconv_final_bf16_within_one_output_rounding():
 
 
 def test_deconv_final_gradient_matches_jax_vjp():
-    """The port's gradient (autograd of the plain version, which is what
-    the CUDA path's backward differentiates too) against the VJP
-    that ``deconv_final_fused`` attaches."""
+    """The port's gradient against the VJP that ``deconv_final_fused``
+    attaches: autograd of the plain version (the CPU path), and
+    ``deconv_final_backward`` (the CUDA path's backward)."""
     x, kernel, bias = _inputs(1, 3, 4, seed=7)
     wcat = flax_kernel_to_wcat(kernel)
     g = np.random.default_rng(8).standard_normal((1, 6, 6, 6)).astype(
@@ -122,6 +151,17 @@ def test_deconv_final_gradient_matches_jax_vjp():
     gk = np.flip(w.grad.numpy(), (2, 3, 4)).transpose(2, 3, 4, 0, 1)
     np.testing.assert_allclose(flax_kernel_to_wcat(gk), gw_ref, rtol=1e-4,
                                atol=1e-4)
+    gx, gw, gb = sk.deconv_final_backward(
+        torch.from_numpy(g)[:, None], xt.detach(), w.detach())
+    np.testing.assert_allclose(gx.permute(0, 2, 3, 4, 1).numpy(), gx_ref,
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(gb.numpy(), gb_ref, rtol=1e-4, atol=1e-4)
+    gk = np.flip(gw.numpy(), (2, 3, 4)).transpose(2, 3, 4, 0, 1)
+    np.testing.assert_allclose(flax_kernel_to_wcat(gk), gw_ref, rtol=1e-4,
+                               atol=1e-4)
+    assert sk.deconv_final_backward(torch.from_numpy(g)[:, None], xt.detach(),
+                                    w.detach(), (True, False, False))[1:] \
+        == (None, None)
 
 
 def test_deconv_final_rejects_what_the_kernel_does_not_take():
