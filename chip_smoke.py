@@ -17,10 +17,13 @@ raising on failure:
     protocol's 1 x 1024), plus float32 checks at smaller sizes with TF32
     off; K1 and K5 also against ``F.grid_sample``, which computes each in
     one call; K1 on the float32 volume against the volume cast to bf16
-    (bit for bit), and one kernel per timed K1 and K3 call (torch.profiler);
-    K1 and K3 at edge shapes (V = 34; odd S, Cin < 16); kernel, plain,
-    library and bound times (CUDA events, median of 25, L2 flushed before
-    each), each kernel's share of its bound and achieved GB/s;
+    (bit for bit), and one kernel per timed K1, K2, K3 and K5 call
+    (torch.profiler); K1, K2, K3 and K5 at edge shapes (V = 34; odd S,
+    Cin < 16; V = 33, S = 98, groups across a batch boundary), and K2's
+    and K5's ValueError for a slab larger than shared memory; kernel,
+    plain, library and bound times (CUDA events, median of 25, L2 flushed
+    before each), each kernel's share of its bound and achieved GB/s, K2's
+    and K5's shared-memory plan (G, buffers) and both plans timed;
  3. reconstruct: 16 generated photo + mask PNGs, a seeded GenreNet
     exported to a checkpoint in the JAX package's format,
     ``genre_shapehd_tpu_torch.cli.test`` at 256² -> 128³ in bfloat16,
@@ -319,7 +322,6 @@ def phase_kernels(device):
                   "render_stage2_scan": None}
     # bytes: every input read once, every output written once
     tap_bytes_1 = r * m * (4 + 8) * 2           # x, y tables
-    tap_bytes_2 = r * z * (4 + 8) * 2           # z, m tables
     c_bytes = b * r * m * v * 2
     bounds = {
         # the volume in its own dtype (float32 on the main path), c in
@@ -327,12 +329,55 @@ def phase_kernels(device):
         "render_stage1": bound(vox.numel() * vox.element_size() + c_bytes
                                + tap_bytes_1,
                                12.0 * b * r * m * v),
-        # per sample: 6 mul/add per 2 z-taps x 2, 3 for the m-taps,
-        # clip 2, log1p and exp 1 each, scan and depth sums 5
-        "render_stage2_scan": bound(c_bytes + tap_bytes_2 + b * r * r * 4,
-                                    24.0 * b * r * r * z),
+        # c, the tap records, the depth map; per sample 4 multiply-adds
+        # (8), the clip (2), 1 - p, the running product and the sum (3)
+        "render_stage2_scan": bound(
+            c_bytes + record_bytes(v, r, z, m, bf) + b * r * r * 4,
+            13.0 * b * r * r * z),
     }
+    log_plan("K2 render_stage2_scan", v, m, bf, ms["render_stage2_scan"],
+             bounds["render_stage2_scan"])
+    # measurement only: the other plan of the design, in turns with the
+    # default (default, other, other, default)
+    turns = []
+    for grouping in (rk.GROUPING, (2, 2), (2, 2), rk.GROUPING):
+        with grouping_as(grouping):
+            turns.append(time_ms(lambda: rk.stage2(c, v, r, z, m, bf), flush))
+    log(f"[kernels] K2 at G, buffers = {rk.GROUPING} (default): "
+        f"{turns[0]:.4f} / {turns[3]:.4f} ms; at (2, 2): {turns[1]:.4f} / "
+        f"{turns[2]:.4f} ms")
     return errs, ms, plain_ms, library_ms, bounds
+
+
+def record_bytes(v, r, z, m, dtype):
+    """Bytes of K2's and K5's tap-record table (read once per call)."""
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    rec = rk.tap_records(v, r, z, m, dtype)
+    return rec.numel() * rec.element_size()
+
+
+def log_plan(what, v, m, dtype, ms, bnd):
+    """The shared-memory plan of a K2 / K5 call and its share of the
+    bound."""
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    pl = rk.plan(v, m, dtype)
+    log(f"[kernels] {what}: G {pl['group']}, buffers {pl['buffers']}, "
+        f"row stride {pl['row_stride']} elements, shared memory "
+        f"{pl['smem_bytes']} bytes; {ms:.4f} ms, bound {bnd[0] * 1e3:.1f} "
+        f"us ({bnd[1]}), {100 * bnd[0] / ms:.1f} % of the bound, "
+        f"{bnd[2] / ms / 1e6:.0f} GB/s")
+
+
+@contextlib.contextmanager
+def grouping_as(grouping):
+    """K2 and K5 under another (G, buffers) for the block (measurement
+    only)."""
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    saved, rk.GROUPING = rk.GROUPING, grouping
+    try:
+        yield
+    finally:
+        rk.GROUPING = saved
 
 
 def phase_deconv_final(device, flush):
@@ -804,7 +849,7 @@ def device_profile(prof, n, wall_ms, own_names):
     return stages, busy, own
 
 
-OWN_KERNELS = ("stage1_kernel", "stage2_scan_kernel", "stage2_samples_kernel",
+OWN_KERNELS = ("stage1_kernel", "slab_scan_kernel", "slab_samples_kernel",
                "deconv_final_")
 
 
@@ -912,21 +957,32 @@ def phase_stage2_samples(device, flush):
     plain_ms = time_ms(lambda: rk.stage2_samples_plain(c, v, r, z, m, bf),
                        flush)
     library_ms = time_ms(lambda: library_stage2_samples(c_f32, g2), flush)
-    # bytes: c read once, the float32 samples written once, the z / m tap
-    # tables; per sample 6 multiply-adds of the taps
-    bnd = bound(c.numel() * 2 + b * r * r * z * 4 + r * z * (4 + 8) * 2,
-                12.0 * b * r * r * z)
+    # bytes: c read once, the float32 samples written once, the tap
+    # records; per sample 4 multiply-adds of the taps
+    bnd = bound(c.numel() * 2 + b * r * r * z * 4
+                + record_bytes(v, r, z, m, bf), 8.0 * b * r * r * z)
+    log_plan(f"K5 render_stage2_samples (batch {b})", v, m, bf, ms, bnd)
+    turns = []
+    for grouping in (rk.GROUPING, (2, 2), (2, 2), rk.GROUPING):
+        with grouping_as(grouping):
+            turns.append(time_ms(
+                lambda: rk.stage2_samples(c, v, r, z, m, bf), flush))
+    log(f"[kernels] K5 at G, buffers = {rk.GROUPING} (default): "
+        f"{turns[0]:.4f} / {turns[3]:.4f} ms; at (2, 2): {turns[1]:.4f} / "
+        f"{turns[2]:.4f} ms")
     return worst, ms, plain_ms, library_ms, bnd
 
 
 def phase_edge_shapes(device):
-    """K1 and K3 off the main path's shapes against their plain versions,
-    at the bounds above, with a synchronize after each call so that a
-    fault shows where it happened: K1 at V = 34 (no multiple of the vector
-    width: the scalar path) and batch 1, from float32 and bfloat16
+    """K1, K2, K3 and K5 off the main path's shapes against their plain
+    versions, at the bounds above, with a synchronize after each call so
+    that a fault shows where it happened: K1 at V = 34 (no multiple of the
+    vector width: the scalar path) and batch 1, from float32 and bfloat16
     volumes, in both compute dtypes; K3 at (B, Cin, S) = (1, 7, 9),
     (2, 40, 33), (1, 3, 5) in bfloat16 and float32 (S not a multiple of
-    8: the CUDA cores)."""
+    8: the CUDA cores); K2 and K5 at V = 34 and 33, M = 50, R = 32,
+    z = 98, batch 1 and 3, three plans; the wrapper's ValueError for a
+    slab larger than shared memory."""
     import torch
     import torch.nn.functional as F
     from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
@@ -973,35 +1029,77 @@ def phase_edge_shapes(device):
                       f"K3 at {(b, cin, s)}: {float(d.max())} "
                       f"{float(d.mean())} vs plain, {e} vs float32")
             worst[f"K3 {(b, cin, s)} {str(dt)[6:]}"] = float(d.max()) / scale
+    # K2 and K5: S = 98 (no multiple of 32 or 4), a bf16 slab of 3,400
+    # bytes (no multiple of 16), V = 33 bf16 (rows not 4-byte aligned:
+    # plain-load staging), batch 1 and 3; the default plan and G = 3 (a
+    # group across the batch boundary, a ragged last group)
+    r, z, m = 32, 98, 50
+    for v, cd, b in ((34, bf, 1), (34, bf, 3), (34, f32, 1), (34, f32, 3),
+                     (33, bf, 3)):
+        c = rk.stage1(volume(b, v, 13, device), v, r, z, m, cd)
+        refs = (rk.stage2_plain(c, v, r, z, m, cd),
+                rk.stage2_samples_plain(c, v, r, z, m, cd))
+        for grouping in (rk.GROUPING, (3, 1), (3, 2)):
+            with grouping_as(grouping):
+                for name, fn, ref in (("K2", rk.stage2, refs[0]),
+                                      ("K5", rk.stage2_samples, refs[1])):
+                    out = fn(c, v, r, z, m, cd)
+                    torch.cuda.synchronize()
+                    d = (out - ref).abs()
+                    err = (float(d.max()), float(d.mean()))
+                    ok = err[0] < 1e-5 if cd == f32 else (err[0] < 3e-2 and
+                                                          err[1] < 2e-3)
+                    check(ok, f"{name} at V={v}, batch {b}, {cd}, "
+                              f"{grouping}: {err}")
+                    key = f"{name} V={v} b={b} {str(cd)[6:]}"
+                    worst[key] = max(worst.get(key, 0.0), err[0])
+    # a slab larger than shared memory: the wrapper raises, nothing runs
+    rk.reset_launches()
+    big = torch.zeros((1, 8, 384, 256), device=device)
+    for fn in (rk.stage2, rk.stage2_samples):
+        try:
+            fn(big, 256, 8, 64, 384, f32)
+        except ValueError:
+            continue
+        raise AssertionError(f"{fn.__name__} took a 395 KB slab")
+    check(set(rk.launches.values()) == {0}, f"launched: {rk.launches}")
     log(f"[kernels] edge shapes, max abs err (K3: of the scale) vs plain: "
-        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}; "
+        f"a (384, 256) float32 slab raises ValueError")
 
 
 def kernel_counts(device):
-    """The timed K1 and K3 calls at the main path's shapes launch one
-    kernel each: no cast of the volume, the input or the weight."""
+    """The timed K1, K2, K3 and K5 calls at the main path's shapes launch
+    one kernel each: no cast of the volume, the input or the weight, no
+    copy of c or of the tap records."""
     import torch
     from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
     from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
     b, v, r, z, m = (MAIN[k] for k in "bvrzm")
+    bf = torch.bfloat16
     vox = volume(b, v, 0, device)
+    c = rk.stage1(vox, v, r, z, m, bf)
+    c4 = c[:TRAIN["batch"]].contiguous()
     b, cin, s = (DEC6[k] for k in ("b", "cin", "s"))
-    x = torch.zeros((b, cin, s, s, s), dtype=torch.bfloat16, device=device)
+    x = torch.zeros((b, cin, s, s, s), dtype=bf, device=device)
     w = torch.zeros((cin, 1, 4, 4, 4), device=device)
     bias = torch.zeros(1, device=device)
-    calls = (lambda: rk.stage1(vox, v, r, z, m, torch.bfloat16),
-             lambda: sk.deconv_final(x, w, bias))
+    calls = (lambda: rk.stage1(vox, v, r, z, m, bf),
+             lambda: rk.stage2(c, v, r, z, m, bf),
+             lambda: sk.deconv_final(x, w, bias),
+             lambda: rk.stage2_samples(c4, v, r, z, m, bf))
     for fn in calls:                         # tables and attributes set up
         fn()
     names = kernels_launched(*calls)
+    kinds = ("stage1_kernel", "slab_scan_kernel", "deconv_final_mma_kernel",
+             "slab_samples_kernel")
     own = {k: sum(n for name, n in names.items() if k in name)
-           for k in ("stage1_kernel", "deconv_final_mma_kernel")}
-    check(own == {"stage1_kernel": 1, "deconv_final_mma_kernel": 1}
-          and sum(names.values()) == 2,
-          f"kernels of one K1 and one K3 call: {names}")
-    log(f"[kernels] device kernels of one timed K1 call (float32 volume) and "
-        f"one K3 call (bf16 x, float32 weight), torch.profiler: "
-        f"{json.dumps(own)}, no other")
+           for k in kinds}
+    check(own == dict.fromkeys(kinds, 1) and sum(names.values()) == 4,
+          f"kernels of one K1, K2, K3 and K5 call: {names}")
+    log(f"[kernels] device kernels of one timed K1 call (float32 volume), "
+        f"K2 call (batch 8), K3 call (bf16 x, float32 weight) and K5 call "
+        f"(batch 4), torch.profiler: {json.dumps(own)}, no other")
 
 
 def dec6_backward_ms(device):

@@ -66,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_async.cuh"
+
 namespace {
 
 constexpr int kRows = 4;    // input positions per thread along i
@@ -232,10 +234,6 @@ __host__ __device__ constexpr int smem_bytes(int chunks) {
   return 1024 + 2 * kStage + chunks * kBWords * 4 + 16;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
@@ -248,18 +246,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
 }
 
 // B of every chunk, packed as the mma wants it.  Two products per (di,
@@ -316,21 +302,15 @@ deconv_final_mma_kernel(__grid_constant__ const CUtensorMap tmap,
   const uint32_t bar0 = smem_addr(bs + chunks * kBWords);
   auto issue = [&](int tile, int n, int buf) {   // thread 0 only
     const uint32_t bar = bar0 + 8 * buf;
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(bar), "r"(kStage) : "memory");
-    asm volatile(
-        "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
-        ::"r"(smem_addr(smem + buf * kStage)),
-          "l"(reinterpret_cast<uint64_t>(&tmap)), "r"(0), "r"(n * kCh),
-          "r"((tile % TJn) * kTJ - 1), "r"((tile / TJn % TIn) * kTI - 1),
-          "r"(tile / (TJn * TIn)), "r"(bar)
-        : "memory");
+    mbar_expect_tx(bar, kStage);
+    tma_load_5d(smem_addr(smem + buf * kStage), &tmap, 0, n * kCh,
+                (tile % TJn) * kTJ - 1, (tile / TJn % TIn) * kTI - 1,
+                tile / (TJn * TIn), bar);
   };
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0));
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8));
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_fence_init();
     if (blockIdx.x < tiles) issue(blockIdx.x, 0, 0);
   }
   build_b(w, bs, Cin, chunks);

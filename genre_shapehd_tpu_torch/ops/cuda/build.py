@@ -3,8 +3,8 @@
 Each ``csrc/*.cu`` file has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<stem>-<hash>.so`` under the
 repository root at first use, and loaded with ``ctypes``.  The hash covers
-the source text and the flags, so an edited source never loads a stale
-library.  :func:`build_all` starts one ``nvcc`` per source at once.
+the source text, every ``csrc/*.cuh`` header and the flags, so an edited
+source or header never loads a stale library.  :func:`build_all` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -43,9 +43,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    text = (CSRC_DIR / source).read_bytes()
-    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{digest[:12]}.so"
+    h = hashlib.sha1((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(sources: Iterable[str] = SOURCES) -> Dict[str, float]:

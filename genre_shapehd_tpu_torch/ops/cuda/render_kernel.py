@@ -12,6 +12,10 @@ launch counts and gradients (counterpart of
   K5 ``render_stage2_samples`` replaces ``_s2_kernel``: c -> (B, Ph, Th, S)
      float32 ray samples, every one written out.
 
+K2 and K5 hold groups of (b, th) slabs of c in shared memory and stream
+the (ph, s) taps once per group: :func:`plan` sizes the groups,
+:func:`tap_records` packs the taps as one interleaved record table.
+
 :func:`stage1`, :func:`stage2` and :func:`stage2_samples` launch the
 kernels on CUDA tensors and run the plain versions (:func:`stage1_plain`,
 :func:`stage2_plain`, :func:`stage2_samples_plain`: the dense einsums of
@@ -41,8 +45,9 @@ about one bfloat16 rounding of those intermediates.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..render_sph_fast import (RHO_RES, _stage_weights, expected_depth,
@@ -56,6 +61,7 @@ launches: Dict[str, int] = {"render_stage1": 0, "render_stage2_scan": 0,
                             "render_stage2_samples": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ELT = {torch.float32: 4, torch.bfloat16: 2}
 _cache: Dict[Tuple, Dict[str, torch.Tensor]] = {}
 _lib = None
 
@@ -76,19 +82,144 @@ def _dense_weights(vox_res, sph_res, z_res, rho_res, dtype, device):
 
 
 def device_taps(vox_res, sph_res, z_res, rho_res, dtype, device):
-    """The tap tables on ``device``: ``*_lo`` int32 and ``*_w`` float32
-    weights rounded to the compute dtype, as the plain version rounds its
-    dense weights."""
+    """K1's tap tables (x, y) on ``device``: ``*_lo`` int32 and ``*_w``
+    float32 weights rounded to the compute dtype, as the plain version
+    rounds its dense weights."""
     key = ("taps", vox_res, sph_res, z_res, rho_res, dtype, str(device))
     if key not in _cache:
         out = {}
         for k, v in tap_tables(vox_res, sph_res, z_res, rho_res).items():
+            if k[0] not in "xy":
+                continue
             t = torch.as_tensor(v)
             if k.endswith("_w"):
                 t = t.to(dtype).to(torch.float32)
             out[k] = t.contiguous().to(device)
         _cache[key] = out
     return _cache[key]
+
+
+# ------------------------------------------------------ K2 / K5: the plan
+#: shared memory a K2 / K5 block may take for its slabs: the H100's 227 KB
+#: less 1 KB for the kernels' static shared memory
+SMEM_LIMIT = 226 * 1024
+#: (G, buffers) K2 and K5 ask :func:`plan` for: 4 slabs, one buffer (at
+#: the main shape faster than 2 slabs in two buffers, whose overlap of
+#: copies and work does not make up for the tap records streamed twice
+#: as often; chip_smoke.py times both)
+GROUPING = (4, 1)
+#: slabs a group may hold (the kernels' kMaxGroup)
+MAX_GROUP = 4
+
+
+def row_stride(vox_res: int, dtype: torch.dtype) -> int:
+    """Elements between the rows of a slab staged in shared memory: V
+    rounded up to an odd number of 4-byte words, so that the rows of one
+    z fall in different banks (V = 128 bf16: 65 words, 130 elements)."""
+    elt = _ELT[dtype]
+    words = -(-vox_res * elt // 4)
+    words += 1 - words % 2
+    return words * 4 // elt
+
+
+def plan(vox_res: int, rho_res: int, dtype: torch.dtype,
+         grouping: Optional[Tuple[int, int]] = None) -> Dict[str, int]:
+    """K2's and K5's shared memory for slabs c[b, th] of (M, V) in
+    ``dtype``: ``group`` (G) slabs per group, ``buffers`` (2: the next
+    group is staged during this one's work), the staged ``row_stride``,
+    ``slab_bytes`` and ``smem_bytes`` = buffers * G * slab_bytes.
+
+    Asks for ``grouping`` = (G, buffers), :data:`GROUPING` by default, and
+    gives up slabs of a group, then the second buffer, until the buffers
+    fit in :data:`SMEM_LIMIT`.  Raises ValueError where one slab does not
+    fit (float32 at V = 256, M = 384: 395 KB)."""
+    _dtype_code(dtype)
+    group, buffers = GROUPING if grouping is None else grouping
+    if not (1 <= group <= MAX_GROUP and buffers in (1, 2)):
+        raise ValueError(f"grouping {(group, buffers)}: G in 1..{MAX_GROUP},"
+                         f" 1 or 2 buffers")
+    pe = row_stride(vox_res, dtype)
+    slab = rho_res * pe * _ELT[dtype]
+    if slab > SMEM_LIMIT:
+        raise ValueError(f"a (M, V) = ({rho_res}, {vox_res}) slab of c in "
+                         f"{dtype} takes {slab} bytes of shared memory, more "
+                         f"than a block has ({SMEM_LIMIT})")
+    while group * buffers * slab > SMEM_LIMIT:
+        if group > 1:
+            group -= 1
+        else:
+            buffers = 1
+    return dict(group=group, buffers=buffers, row_stride=pe,
+                slab_bytes=slab, smem_bytes=group * buffers * slab)
+
+
+def record_row(z_res: int) -> int:
+    """Records per ph row of :func:`tap_records`: K2's 32 lanes times its
+    samples per lane, the power of two from 4 (K5's 4 samples a lane) at
+    or above S / 32."""
+    spl = 4
+    while 32 * spl < z_res:
+        spl *= 2
+    return 32 * spl
+
+
+def tap_records(vox_res: int, sph_res: int, z_res: int, rho_res: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The stage-2 taps as one interleaved record table, zero past S.  A
+    record has W words: float32 {z_lo, m_lo, z_w0, z_w1, m_w0, m_w1};
+    bfloat16 {z_lo | m_lo << 16, z_w0 | z_w1 << 16, m_w0 | m_w1 << 16}
+    with the weights in bfloat16.  The weights are rounded to ``dtype``,
+    as the plain version rounds its dense weights, so bfloat16 holds them
+    exactly.  Quad-major: the 4 records of samples 4q .. 4q + 3 are W
+    16-byte chunks, stored as int32 (Ph, W, :func:`record_row` / 4, 4), so
+    lanes that read consecutive quads read consecutive 16 bytes."""
+    _dtype_code(dtype)
+    key = ("records", vox_res, sph_res, z_res, rho_res, dtype)
+    if key not in _cache:
+        t = tap_tables(vox_res, sph_res, z_res, rho_res)
+        w = {f"{k}{i}": torch.from_numpy(
+                 np.ascontiguousarray(t[k + "_w"][..., i])).to(dtype)
+             for k in "zm" for i in (0, 1)}
+        if dtype == torch.float32:
+            words = [t["z_lo"], t["m_lo"]] + [
+                w[k].numpy().view(np.int32) for k in ("z0", "z1", "m0", "m1")]
+        else:
+            if max(vox_res, rho_res) > 1 << 16:
+                raise ValueError("bfloat16 records hold rows below 2**16")
+            u = {k: v.view(torch.int16).numpy().view(np.uint16)
+                 .astype(np.uint32) for k, v in w.items()}
+            words = [(t["z_lo"].astype(np.uint32)
+                      | (t["m_lo"].astype(np.uint32) << 16)),
+                     u["z0"] | (u["z1"] << 16), u["m0"] | (u["m1"] << 16)]
+            words = [x.view(np.int32) for x in words]
+        n_w = len(words)
+        rec = np.zeros((sph_res, record_row(z_res), n_w), np.int32)
+        rec[:, :z_res] = np.stack(words, -1)
+        quads = rec.reshape(sph_res, -1, n_w, 4).transpose(0, 2, 1, 3)
+        _cache[key] = torch.from_numpy(np.ascontiguousarray(quads))
+    return _cache[key]
+
+
+def decode_records(rec: torch.Tensor, dtype: torch.dtype,
+                   z_res: int) -> Dict[str, np.ndarray]:
+    """:func:`tap_records` back to ``tap_tables``' form over the first
+    ``z_res`` samples: z_lo, m_lo int32 (Ph, S), z_w, m_w float32 (Ph, S,
+    2)."""
+    ph, n_w = rec.shape[:2]
+    r = rec.numpy().transpose(0, 2, 1, 3).reshape(ph, -1, n_w)[:, :z_res]
+    if dtype == torch.float32:
+        f = r[..., 2:].view(np.float32)
+        return {"z_lo": r[..., 0], "m_lo": r[..., 1],
+                "z_w": f[..., 0:2], "m_w": f[..., 2:4]}
+    u = r.view(np.uint32)
+
+    def halves(x):                       # bf16 pair -> float32 (..., 2)
+        return np.stack([x << 16, x & 0xFFFF0000], -1).astype(
+            np.uint32).view(np.float32)
+
+    return {"z_lo": (u[..., 0] & 0xFFFF).astype(np.int32),
+            "m_lo": (u[..., 0] >> 16).astype(np.int32),
+            "z_w": halves(u[..., 1]), "m_w": halves(u[..., 2])}
 
 
 # ------------------------------------------------------------ plain versions
@@ -154,12 +285,10 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.render_stage1.argtypes = [p, p, i, i, p, p, p, p, i, i, i, i, p]
         lib.render_stage1.restype = i
-        lib.render_stage2_scan.argtypes = [p, p, i, p, p, p, p,
-                                           i, i, i, i, i, i, p]
-        lib.render_stage2_scan.restype = i
-        lib.render_stage2_samples.argtypes = [p, p, i, p, p, p, p,
-                                              i, i, i, i, i, i, p]
-        lib.render_stage2_samples.restype = i
+        for name in ("render_stage2_scan", "render_stage2_samples"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p, p, i, p] + [i] * 10 + [p]
+            fn.restype = i
         _lib = lib
     return _lib
 
@@ -225,37 +354,50 @@ def stage1(vox: torch.Tensor, vox_res: int, sph_res: int = 128,
     return c
 
 
+def _launch_stage2(name: str, c: torch.Tensor, out_shape: Tuple[int, ...],
+                   vox_res: int, sph_res: int, z_res: int, rho_res: int,
+                   compute_dtype: torch.dtype) -> torch.Tensor:
+    """K2 or K5 (``name``) on a CUDA c into a new float32 tensor of shape
+    (B,) + ``out_shape``; raises before launching what the plan refuses."""
+    _on_cuda(c, name)
+    if c.dtype != compute_dtype:
+        raise TypeError(f"c is {c.dtype}, compute dtype {compute_dtype}")
+    pl = plan(vox_res, rho_res, compute_dtype)
+    c = c.contiguous()
+    key = ("device_records", vox_res, sph_res, z_res, rho_res, compute_dtype,
+           str(c.device))
+    if key not in _cache:
+        _cache[key] = tap_records(vox_res, sph_res, z_res, rho_res,
+                                  compute_dtype).to(c.device)
+    out = torch.empty((c.shape[0],) + out_shape, dtype=torch.float32,
+                      device=c.device)
+    lib = _library()
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(
+            _ptr(c), _ptr(out), _DTYPE_CODE[compute_dtype], _ptr(_cache[key]),
+            c.shape[0], sph_res, rho_res, vox_res, sph_res, z_res,
+            record_row(z_res), pl["row_stride"], pl["group"], pl["buffers"],
+            ctypes.c_void_p(stream))
+        launches[name] += 1
+    _check(err, name)
+    return out
+
+
 def stage2(c: torch.Tensor, vox_res: int, sph_res: int = 128,
            z_res: int = 256, rho_res: int = RHO_RES,
            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K2: c (B, Th, M, V) -> (B, Ph, Th) float32 expected depth."""
     _check_shape(c, (sph_res, rho_res, vox_res), "render_stage2_scan c")
-    code = _dtype_code(compute_dtype)
+    _dtype_code(compute_dtype)
     if c.device.type == "cpu":
         return stage2_plain(c, vox_res, sph_res, z_res, rho_res,
                             compute_dtype)
-    _on_cuda(c, "render_stage2_scan")
-    if c.dtype != compute_dtype:
-        raise TypeError(f"c is {c.dtype}, compute dtype {compute_dtype}")
     if not 2 <= z_res <= 512:
         raise ValueError(f"render_stage2_scan takes 2..512 samples per "
                          f"ray, not {z_res}")
-    c = c.contiguous()
-    taps = device_taps(vox_res, sph_res, z_res, rho_res, compute_dtype,
-                       c.device)
-    b = c.shape[0]
-    out = torch.empty((b, sph_res, sph_res), dtype=torch.float32,
-                      device=c.device)
-    lib = _library()
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.render_stage2_scan(
-            _ptr(c), _ptr(out), code, _ptr(taps["z_lo"]), _ptr(taps["z_w"]),
-            _ptr(taps["m_lo"]), _ptr(taps["m_w"]), b, sph_res, rho_res,
-            vox_res, sph_res, z_res, ctypes.c_void_p(stream))
-        launches["render_stage2_scan"] += 1
-    _check(err, "render_stage2_scan")
-    return out
+    return _launch_stage2("render_stage2_scan", c, (sph_res, sph_res),
+                          vox_res, sph_res, z_res, rho_res, compute_dtype)
 
 
 def stage2_samples(c: torch.Tensor, vox_res: int, sph_res: int = 128,
@@ -264,29 +406,16 @@ def stage2_samples(c: torch.Tensor, vox_res: int, sph_res: int = 128,
                    ) -> torch.Tensor:
     """K5: c (B, Th, M, V) -> (B, Ph, Th, S) float32 ray samples."""
     _check_shape(c, (sph_res, rho_res, vox_res), "render_stage2_samples c")
-    code = _dtype_code(compute_dtype)
+    _dtype_code(compute_dtype)
     if c.device.type == "cpu":
         return stage2_samples_plain(c, vox_res, sph_res, z_res, rho_res,
                                     compute_dtype)
-    _on_cuda(c, "render_stage2_samples")
-    if c.dtype != compute_dtype:
-        raise TypeError(f"c is {c.dtype}, compute dtype {compute_dtype}")
-    c = c.contiguous()
-    taps = device_taps(vox_res, sph_res, z_res, rho_res, compute_dtype,
-                       c.device)
-    b = c.shape[0]
-    out = torch.empty((b, sph_res, sph_res, z_res), dtype=torch.float32,
-                      device=c.device)
-    lib = _library()
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.render_stage2_samples(
-            _ptr(c), _ptr(out), code, _ptr(taps["z_lo"]), _ptr(taps["z_w"]),
-            _ptr(taps["m_lo"]), _ptr(taps["m_w"]), b, sph_res, rho_res,
-            vox_res, sph_res, z_res, ctypes.c_void_p(stream))
-        launches["render_stage2_samples"] += 1
-    _check(err, "render_stage2_samples")
-    return out
+    if z_res < 2:
+        raise ValueError(f"render_stage2_samples takes 2 or more samples "
+                         f"per ray, not {z_res}")
+    return _launch_stage2("render_stage2_samples", c,
+                          (sph_res, sph_res, z_res), vox_res, sph_res, z_res,
+                          rho_res, compute_dtype)
 
 
 # ---------------------------------------------------------------- gradients

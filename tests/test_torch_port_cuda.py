@@ -245,6 +245,51 @@ def test_stage2_samples_matches_plain(device, dtype, b, v, r, z, m):
                           v, r, z, m, cd)
 
 
+@pytest.mark.parametrize("grouping", [None, (3, 2), (3, 1)])
+@pytest.mark.parametrize("dtype,b,v", [
+    ("bfloat16", 1, 34), ("bfloat16", 3, 34), ("float32", 1, 34),
+    ("float32", 3, 34), ("bfloat16", 3, 33)])
+def test_stage2_slab_kernels_edge_shapes(device, monkeypatch, grouping,
+                                         dtype, b, v):
+    """K2 and K5 off the main path's shapes against their plain versions:
+    M = 50, R = 32, z = 98 (S no multiple of 32 or of 4), V = 34 (a bf16
+    slab of 3,400 bytes, no multiple of 16), V = 33 in bf16 (rows not
+    4-byte aligned: staged by plain loads), batch 1 and 3; groups of the
+    default plan and of G = 3 (a group across a batch boundary, a ragged
+    last group), double- and single-buffered."""
+    if grouping is not None:
+        monkeypatch.setattr(rk, "GROUPING", grouping)
+    cd = getattr(torch, dtype)
+    r, z, m = 32, 98, 50
+    c = rk.stage1(_volume(b, v, 7, device), v, r, z, m, cd)
+    rk.reset_launches()
+    depth = rk.stage2(c, v, r, z, m, cd)
+    torch.cuda.synchronize()
+    samples = rk.stage2_samples(c, v, r, z, m, cd)
+    torch.cuda.synchronize()
+    assert rk.launches == {"render_stage1": 0, "render_stage2_scan": 1,
+                           "render_stage2_samples": 1}
+    assert depth.shape == (b, r, r) and samples.shape == (b, r, r, z)
+    for got, ref in ((depth, rk.stage2_plain(c, v, r, z, m, cd)),
+                     (samples, rk.stage2_samples_plain(c, v, r, z, m, cd))):
+        d = (got - ref).abs()
+        if dtype == "float32":
+            assert d.max() < 1e-5, d.max()
+        else:
+            assert d.max() < 3e-2 and d.mean() < 2e-3, (d.max(), d.mean())
+
+
+def test_stage2_slab_larger_than_shared_memory_raises(device):
+    """A float32 slab of (M, V) = (384, 256) takes 395 KB: the wrapper
+    raises before anything is launched."""
+    c = torch.zeros((1, 8, 384, 256), device=device)
+    rk.reset_launches()
+    for fn in (rk.stage2, rk.stage2_samples):
+        with pytest.raises(ValueError):
+            fn(c, 256, 8, 64, 384, torch.float32)
+    assert set(rk.launches.values()) == {0}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_render_gradient_on_the_card_matches_cpu(device, dtype):
     """The card's forward K1 + K2 and backward K1 + K5 + transpose against

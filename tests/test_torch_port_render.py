@@ -1,7 +1,11 @@
-"""PyTorch port, spherical renderer: the tap tables, the plain renderer
-against the JAX package (XLA einsum path and the fused Pallas kernels in
-interpret mode), and a CPU gather-form rendition of the CUDA kernels'
-tap arithmetic against the dense plain version."""
+"""PyTorch port, spherical renderer: the tap tables and K2's tap records,
+the plain renderer against the JAX package (XLA einsum path and the fused
+Pallas kernels in interpret mode), a CPU gather-form rendition of the
+CUDA kernels' tap arithmetic and of K2's work split against the dense
+plain version and the Pallas kernels, K2's and K5's shared-memory plan,
+and the kernel build's digest."""
+
+import shutil
 
 import numpy as np
 import jax.numpy as jnp
@@ -106,7 +110,8 @@ def _gather_stage1(vox, taps):
 
 def _gather_stage2(c, taps, z_res):
     """K2's arithmetic on the CPU: per ray, p[s] from 2 m-taps x 2 z-taps,
-    clip, exclusive prefix sum of log1p(-p), expected depth."""
+    clip, exclusive product of (1 - p) (the transmittance T), expected
+    depth summed by parts: sum_{s>=1} T_s / (S - 1)."""
     z0, m0 = taps["z_lo"], taps["m_lo"]          # (Ph, S)
     wz, wr = taps["z_w"], taps["m_w"]
     p = 0.0
@@ -116,10 +121,8 @@ def _gather_stage2(c, taps, z_res):
             g = c[:, :, m0 + i, z0 + j]
             p = p + (wr[..., i] * wz[..., j])[None, None] * g
     p = torch.clamp(p, 1e-5, 1.0 - 1e-5)
-    lg = torch.log1p(-p)
-    cum = torch.cumsum(lg, -1) - lg
-    s = torch.arange(z_res, dtype=torch.float32) / (z_res - 1)
-    out = (p * torch.exp(cum) * s).sum(-1) + torch.exp(lg.sum(-1))
+    trans = torch.cumprod(1.0 - p, -1) / (1.0 - p)
+    out = trans[..., 1:].sum(-1) / (z_res - 1)
     return out.permute(0, 2, 1)                   # (B, Ph, Th)
 
 
@@ -144,7 +147,7 @@ def test_gather_form_matches_dense_plain(dtype):
     e_gather = _gather_stage2(c, taps, Z)
     d = np.abs(e_gather.numpy() - e_dense.numpy())
     if dtype == "float32":
-        # product vs exp-of-log-sum form of the stop probability
+        # the same function summed by parts, in another order
         assert d.max() < 1e-5, d.max()
     else:
         # the dense path also rounds t2 = sum_z c*wz to bf16: the
@@ -167,3 +170,136 @@ def test_kernel_wrappers_take_plain_version_on_cpu():
                            "render_stage2_samples": 0}
     with pytest.raises(TypeError):
         rk.stage1(vox, V, R, Z, M, torch.float16)
+
+
+def _record_taps(dtype, z_res):
+    """K2's and K5's tap records decoded over the padded row (zero weights
+    past S), with the products w_ij = m_w_i * z_w_j the kernels form."""
+    pad = rk.record_row(z_res)
+    d = rk.decode_records(rk.tap_records(V, R, z_res, M, dtype), dtype, pad)
+    wz, wr = torch.from_numpy(d["z_w"]), torch.from_numpy(d["m_w"])
+    return (torch.from_numpy(d["z_lo"]).long(),
+            torch.from_numpy(d["m_lo"]).long(),
+            {(i, j): wr[..., i] * wz[..., j] for i in (0, 1) for j in (0, 1)})
+
+
+def _k2_work_split(c, dtype, z_res, group):
+    """K2's work split on the CPU: groups of ``group`` consecutive flat
+    slabs c[b * Th + th] (the last one ragged, one across the batch
+    boundary), every ph row's records applied to each slab of the group,
+    lane l owning samples l * SPL .. l * SPL + SPL - 1 of the padded row,
+    each lane's running product of (1 - p) and sum of the T before its
+    samples, the exclusive product scan of the lane products, the warp's
+    sum / (S - 1)."""
+    z0, m0, w = _record_taps(dtype, z_res)
+    pad = z0.shape[1]
+    spl = pad // 32
+    slabs = c.float().reshape(-1, M, V)
+    s = torch.arange(pad)
+    valid = (s < z_res).reshape(32, spl)
+    counted = valid & (s >= 1).reshape(32, spl)
+    out = torch.empty(slabs.shape[0], R)
+    for first in range(0, slabs.shape[0], group):
+        g = slabs[first:first + group]                     # (G, M, V)
+        p = w[0, 0] * g[:, m0, z0]
+        for i, j in ((0, 1), (1, 0), (1, 1)):
+            p = p + w[i, j] * g[:, m0 + i, z0 + j]          # (G, Ph, pad)
+        p = torch.clamp(p, 1e-5, 1.0 - 1e-5).reshape(-1, R, 32, spl)
+        q = torch.where(valid, 1.0 - p, torch.ones(()))
+        run = torch.cumprod(q, -1) / q                      # T within a lane
+        lane_sum = (run * counted).sum(-1)
+        lane_prod = q.prod(-1)
+        before = torch.cumprod(lane_prod, -1) / lane_prod   # exclusive scan
+        out[first:first + group] = (before * lane_sum).sum(-1) / (z_res - 1)
+    return out.reshape(c.shape[0], R, R).permute(0, 2, 1)  # (B, Ph, Th)
+
+
+@pytest.mark.parametrize("group", [1, 3])
+@pytest.mark.parametrize("z_res", [Z, 98])
+def test_k2_work_split_matches_plain_f32(group, z_res):
+    c = rk.stage1_plain(torch.from_numpy(_volume(2, 7)), V, R, z_res, M)
+    got = _k2_work_split(c, torch.float32, z_res, group)
+    ref = rk.stage2_plain(c, V, R, z_res, M)
+    assert got.shape == ref.shape == (2, R, R)
+    # the same function, summed by parts and in another order
+    assert float((got - ref).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("z_res,group", [(Z, 3), (98, 1)])
+def test_k2_work_split_matches_pallas_interpret(z_res, group):
+    vox = _volume(2, 8)
+    ref = np.asarray(render_expected_depth_pallas(jnp.asarray(vox), V, R,
+                                                  z_res, M, True))
+    c = rk.stage1(torch.from_numpy(vox), V, R, z_res, M, torch.bfloat16)
+    got = _k2_work_split(c, torch.bfloat16, z_res, group).numpy()
+    d = np.abs(got - ref)
+    # tests/test_pallas_render.py's bounds: the Pallas kernels round other
+    # intermediates to bf16
+    assert d.mean() < 2e-3 and d.max() < 3e-2, (d.mean(), d.max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(128, 128, 256, 192), (34, 32, 98, 50),
+                                   (V, R, Z, M)])
+def test_tap_records_decode_to_tap_tables(shape, dtype):
+    cd = getattr(torch, dtype)
+    rec = rk.tap_records(*shape, cd)
+    s, pad = shape[2], rk.record_row(shape[2])
+    words = 6 if dtype == "float32" else 3
+    assert rec.dtype == torch.int32
+    assert tuple(rec.shape) == (shape[1], words, pad // 4, 4)
+    taps = trs.tap_tables(*shape)
+    got = rk.decode_records(rec, cd, s)
+    for k in ("z_lo", "m_lo"):
+        np.testing.assert_array_equal(got[k], taps[k])
+    for k in ("z_w", "m_w"):                   # rounded to the compute dtype
+        np.testing.assert_array_equal(
+            got[k], torch.from_numpy(taps[k]).to(cd).float().numpy())
+    # past S every record is zero: no tap, no weight
+    tail = rk.decode_records(rec, cd, pad)
+    assert all(np.all(tail[k][:, s:] == 0) for k in tail)
+
+
+def test_plan_groups_and_bytes():
+    bf, f32 = torch.bfloat16, torch.float32
+    # main shape, bf16: 65-word rows, 4 slabs in one buffer
+    assert rk.plan(128, 192, bf) == dict(group=4, buffers=1, row_stride=130,
+                                         slab_bytes=49920, smem_bytes=199680)
+    assert rk.plan(128, 192, bf, (2, 2))["smem_bytes"] == 199680
+    # float32: 99 KB slabs, two of them at most
+    assert rk.plan(128, 192, f32) == dict(group=2, buffers=1, row_stride=129,
+                                          slab_bytes=99072,
+                                          smem_bytes=198144)
+    assert rk.plan(128, 192, f32, (2, 2))["group"] == 1
+    assert rk.plan(128, 192, f32, (2, 2))["buffers"] == 2
+    # edge shapes: a 3,400-byte slab (no multiple of 16), odd V
+    assert rk.plan(34, 50, bf)["slab_bytes"] == 3400
+    assert rk.plan(33, 50, bf)["row_stride"] == 34
+    # one slab that fills a block: G = 1, one buffer
+    assert rk.plan(256, 384, bf)["group"] == 1
+    assert rk.plan(256, 384, bf)["buffers"] == 1
+    for v in range(2, 300, 7):
+        for dt, elt in ((bf, 2), (f32, 4)):
+            pe = rk.row_stride(v, dt)
+            assert pe >= v and (pe * elt) % 4 == 0 and (pe * elt // 4) % 2
+    # a slab larger than shared memory, and groupings the kernels refuse
+    with pytest.raises(ValueError):
+        rk.plan(256, 384, f32)
+    for grouping in ((5, 1), (0, 1), (1, 3)):
+        with pytest.raises(ValueError):
+            rk.plan(128, 192, bf, grouping)
+
+
+def test_library_digest_covers_headers(tmp_path, monkeypatch):
+    """An edited header under csrc/ changes the library name of every
+    source, so a stale library is never loaded."""
+    from genre_shapehd_tpu_torch.ops.cuda import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    before = {src: build.library_path(src) for src in build.SOURCES}
+    assert before == {src: build.library_path(src) for src in build.SOURCES}
+    header = csrc / "hopper_async.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {src: build.library_path(src) for src in build.SOURCES}
+    assert all(before[src] != after[src] for src in build.SOURCES)

@@ -3,8 +3,10 @@ of K5's plain version against the Pallas ``_s2_kernel`` (interpret mode),
 ``sample_rays`` and its transpose against ``sample_rays_pallas`` and
 ``jax.vjp``, the gradient of ``render_expected_depth`` against
 ``jax.grad`` through the Pallas route (bf16) and the XLA route (float32),
-and the gradients of the two scatter-means against ``jax.grad``.  Sizes
-are tests/test_pallas_render.py's."""
+and the gradients of the two scatter-means against ``jax.grad``; K5's
+lane split on the CPU (quad-major tap records, 4 samples a lane per
+round, float4 stores with a scalar tail) against the plain version and
+``_s2_kernel``.  Sizes are tests/test_pallas_render.py's."""
 
 import numpy as np
 import jax
@@ -48,6 +50,48 @@ def test_samples_plain_matches_pallas_s2_kernel():
     d = np.abs(got - ref)
     # tests/test_pallas_render.py's bounds: the Pallas kernels round other
     # intermediates to bf16 than the einsum formulation does
+    assert d.mean() < 2e-3 and d.max() < 3e-2, (d.mean(), d.max())
+
+
+def _k5_lane_split(c, dtype, z_res):
+    """K5's work on the CPU: for every (b, th) slab and ph row, round j
+    and lane l take quad 32 j + l of the padded record row, decode its 4
+    records, gather p = w00 c[m0, z0] + w01 c[m0, z0+1] + w10 c[m0+1, z0]
+    + w11 c[m0+1, z0+1] for s = 4 (32 j + l) + i, and store the 4 values
+    as one float4 where S is a multiple of 4, else one by one below S."""
+    pad = rk.record_row(z_res)
+    d = rk.decode_records(rk.tap_records(V, R, z_res, M, dtype), dtype, pad)
+    z0, m0 = (torch.from_numpy(d[k]).long() for k in ("z_lo", "m_lo"))
+    wz, wr = torch.from_numpy(d["z_w"]), torch.from_numpy(d["m_w"])
+    slabs = c.float().reshape(-1, M, V)
+    out = torch.full((slabs.shape[0], R, z_res), float("nan"))
+    for j in range(pad // 128):
+        s = 128 * j + 4 * torch.arange(32)[:, None] + torch.arange(4)
+        p = (wr[:, s, 0] * wz[:, s, 0]) * slabs[:, m0[:, s], z0[:, s]]
+        for i, k in ((0, 1), (1, 0), (1, 1)):
+            p = p + ((wr[:, s, i] * wz[:, s, k])
+                     * slabs[:, m0[:, s] + i, z0[:, s] + k])
+        keep = s < z_res                                 # (32 lanes, 4)
+        if z_res % 4 == 0:                               # whole quads
+            keep = keep.all(-1, keepdim=True).expand(-1, 4)
+        out[:, :, s[keep]] = p[:, :, keep]
+    return out.reshape(c.shape[0], R, R, z_res).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("z_res", [Z, 98])
+def test_k5_lane_split_matches_plain_and_s2_kernel(z_res):
+    vox = _volume(2, 11)
+    c32 = rk.stage1_plain(torch.from_numpy(vox), V, R, z_res, M)
+    got = _k5_lane_split(c32, torch.float32, z_res)
+    assert not torch.isnan(got).any()                    # every s stored
+    ref = rk.stage2_samples_plain(c32, V, R, z_res, M)
+    # the same sums in another order
+    assert float((got - ref).abs().max()) < 1e-5
+    ref = np.asarray(sample_rays_pallas(jnp.asarray(vox), V, R, z_res, M,
+                                        True))
+    c = rk.stage1(torch.from_numpy(vox), V, R, z_res, M, torch.bfloat16)
+    d = np.abs(_k5_lane_split(c, torch.bfloat16, z_res).numpy() - ref)
+    # tests/test_pallas_render.py's bounds
     assert d.mean() < 2e-3 and d.max() < 3e-2, (d.mean(), d.max())
 
 
