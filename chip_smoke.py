@@ -23,7 +23,7 @@ raising on failure:
     and K5's ValueError for a slab larger than shared memory; kernel,
     plain, library and bound times (CUDA events, median of 25, L2 flushed
     before each), each kernel's share of its bound and achieved GB/s, K2's
-    and K5's shared-memory plan (G, buffers) and both plans timed;
+    and K5's shared-memory plan;
  3. reconstruct: 16 generated photo + mask PNGs, a seeded GenreNet
     exported to a checkpoint in the JAX package's format,
     ``genre_shapehd_tpu_torch.cli.test`` at 256² -> 128³ in bfloat16,
@@ -337,15 +337,6 @@ def phase_kernels(device):
     }
     log_plan("K2 render_stage2_scan", v, m, bf, ms["render_stage2_scan"],
              bounds["render_stage2_scan"])
-    # measurement only: the other plan of the design, in turns with the
-    # default (default, other, other, default)
-    turns = []
-    for grouping in (rk.GROUPING, (2, 2), (2, 2), rk.GROUPING):
-        with grouping_as(grouping):
-            turns.append(time_ms(lambda: rk.stage2(c, v, r, z, m, bf), flush))
-    log(f"[kernels] K2 at G, buffers = {rk.GROUPING} (default): "
-        f"{turns[0]:.4f} / {turns[3]:.4f} ms; at (2, 2): {turns[1]:.4f} / "
-        f"{turns[2]:.4f} ms")
     return errs, ms, plain_ms, library_ms, bounds
 
 
@@ -361,7 +352,7 @@ def log_plan(what, v, m, dtype, ms, bnd):
     bound."""
     from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
     pl = rk.plan(v, m, dtype)
-    log(f"[kernels] {what}: G {pl['group']}, buffers {pl['buffers']}, "
+    log(f"[kernels] {what}: G {pl['group']}, "
         f"row stride {pl['row_stride']} elements, shared memory "
         f"{pl['smem_bytes']} bytes; {ms:.4f} ms, bound {bnd[0] * 1e3:.1f} "
         f"us ({bnd[1]}), {100 * bnd[0] / ms:.1f} % of the bound, "
@@ -369,15 +360,15 @@ def log_plan(what, v, m, dtype, ms, bnd):
 
 
 @contextlib.contextmanager
-def grouping_as(grouping):
-    """K2 and K5 under another (G, buffers) for the block (measurement
+def group_as(group):
+    """K2 and K5 with groups of ``group`` slabs for the block (checks
     only)."""
     from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
-    saved, rk.GROUPING = rk.GROUPING, grouping
+    saved, rk.GROUP = rk.GROUP, group
     try:
         yield
     finally:
-        rk.GROUPING = saved
+        rk.GROUP = saved
 
 
 def phase_deconv_final(device, flush):
@@ -962,14 +953,6 @@ def phase_stage2_samples(device, flush):
     bnd = bound(c.numel() * 2 + b * r * r * z * 4
                 + record_bytes(v, r, z, m, bf), 8.0 * b * r * r * z)
     log_plan(f"K5 render_stage2_samples (batch {b})", v, m, bf, ms, bnd)
-    turns = []
-    for grouping in (rk.GROUPING, (2, 2), (2, 2), rk.GROUPING):
-        with grouping_as(grouping):
-            turns.append(time_ms(
-                lambda: rk.stage2_samples(c, v, r, z, m, bf), flush))
-    log(f"[kernels] K5 at G, buffers = {rk.GROUPING} (default): "
-        f"{turns[0]:.4f} / {turns[3]:.4f} ms; at (2, 2): {turns[1]:.4f} / "
-        f"{turns[2]:.4f} ms")
     return worst, ms, plain_ms, library_ms, bnd
 
 
@@ -981,8 +964,8 @@ def phase_edge_shapes(device):
     volumes, in both compute dtypes; K3 at (B, Cin, S) = (1, 7, 9),
     (2, 40, 33), (1, 3, 5) in bfloat16 and float32 (S not a multiple of
     8: the CUDA cores); K2 and K5 at V = 34 and 33, M = 50, R = 32,
-    z = 98, batch 1 and 3, three plans; the wrapper's ValueError for a
-    slab larger than shared memory."""
+    z = 98, batch 1 and 3, groups of 4 and 3 slabs; the wrapper's
+    ValueError for a slab larger than shared memory."""
     import torch
     import torch.nn.functional as F
     from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
@@ -1031,7 +1014,7 @@ def phase_edge_shapes(device):
             worst[f"K3 {(b, cin, s)} {str(dt)[6:]}"] = float(d.max()) / scale
     # K2 and K5: S = 98 (no multiple of 32 or 4), a bf16 slab of 3,400
     # bytes (no multiple of 16), V = 33 bf16 (rows not 4-byte aligned:
-    # plain-load staging), batch 1 and 3; the default plan and G = 3 (a
+    # plain-load staging), batch 1 and 3; the plan's G = 4 and G = 3 (a
     # group across the batch boundary, a ragged last group)
     r, z, m = 32, 98, 50
     for v, cd, b in ((34, bf, 1), (34, bf, 3), (34, f32, 1), (34, f32, 3),
@@ -1039,8 +1022,8 @@ def phase_edge_shapes(device):
         c = rk.stage1(volume(b, v, 13, device), v, r, z, m, cd)
         refs = (rk.stage2_plain(c, v, r, z, m, cd),
                 rk.stage2_samples_plain(c, v, r, z, m, cd))
-        for grouping in (rk.GROUPING, (3, 1), (3, 2)):
-            with grouping_as(grouping):
+        for group in (rk.GROUP, 3):
+            with group_as(group):
                 for name, fn, ref in (("K2", rk.stage2, refs[0]),
                                       ("K5", rk.stage2_samples, refs[1])):
                     out = fn(c, v, r, z, m, cd)
@@ -1050,7 +1033,7 @@ def phase_edge_shapes(device):
                     ok = err[0] < 1e-5 if cd == f32 else (err[0] < 3e-2 and
                                                           err[1] < 2e-3)
                     check(ok, f"{name} at V={v}, batch {b}, {cd}, "
-                              f"{grouping}: {err}")
+                              f"G {group}: {err}")
                     key = f"{name} V={v} b={b} {str(cd)[6:]}"
                     worst[key] = max(worst.get(key, 0.0), err[0])
     # a slab larger than shared memory: the wrapper raises, nothing runs

@@ -41,10 +41,11 @@
 //       shape) walks groups of G consecutive flat slabs c[b * Th + th]
 //       (M x V each; a group may cross a batch boundary) and holds a
 //       group in shared memory, so c is read from device memory once
-//       (ops/cuda/render_kernel.py::plan: G = 4 in one buffer at the main
-//       shape; two buffers, where they fit, let the next group's copy run
-//       during the current group's work).  Rows are staged at a stride of
-//       an odd number of 4-byte words (V = 128 bf16: 65 words), so that
+//       (ops/cuda/render_kernel.py::plan: G = 4 at the main shape, 195 KB;
+//       two buffers of G = 2 in the same memory, copies overlapping the
+//       work, measured slower: they stream the tap records twice as
+//       often).  Rows are staged at a stride of an odd number of 4-byte
+//       words (V = 128 bf16: 65 words), so that
 //       the samples of one warp, which walk a line across (m, z), fall in
 //       different banks; unpadded rows, which a TMA copy would write, put
 //       one z of every row in the same bank (tools/probe_stage2_banks.py).
@@ -246,8 +247,7 @@ struct S2Shape {
   int B, Th, M, V, Ph, S;
   int s_pad;      // samples per ph row of the record table
   int pe;         // row stride of a staged slab, elements
-  int group;      // G: slabs per group
-  int buffers;    // 1, or 2: the next group is staged during this one
+  int group;      // G: slabs per group, 1 .. kMaxGroup
 };
 
 // Words of the tap record of one (ph, s), as ops/cuda/render_kernel.py::
@@ -368,16 +368,14 @@ __device__ __forceinline__ void stage_group(const T* __restrict__ c, T* buf,
 // The persistent walk of K2 and K5: block i takes groups i, i + gridDim.x,
 // ...; group q is slabs q * G .. q * G + G - 1 of the B * Th flat slabs
 // (the last one ragged).  Calls body(slabs, bt, n) with the group's n
-// slabs staged (slab g at slabs + g * M * pe) and their (b, th) in bt[g].
-// With two buffers the next group's copies are issued before this
-// group's work and waited for after it.
+// slabs staged (slab g at slabs + g * M * pe) and their (b, th) in bt[g];
+// the next group's copies start when every warp is done with this one.
 template <typename T, bool ASYNC, typename Body>
 __device__ __forceinline__ void walk_groups(const T* __restrict__ c,
                                             const S2Shape& a, T* smem,
                                             int2* bt, Body&& body) {
   const int64_t n_slabs = (int64_t)a.B * a.Th;
   const int64_t groups = (n_slabs + a.group - 1) / a.group;
-  const int buf_elems = a.group * a.M * a.pe;
   auto count = [&](int64_t q) {
     const int64_t left = n_slabs - q * a.group;
     return (int)(left < a.group ? left : a.group);
@@ -385,27 +383,18 @@ __device__ __forceinline__ void walk_groups(const T* __restrict__ c,
   if (blockIdx.x < groups)
     stage_group<T, ASYNC>(c, smem, (int64_t)blockIdx.x * a.group,
                           count(blockIdx.x), a);
-  int it = 0;
-  for (int64_t q = blockIdx.x; q < groups; q += gridDim.x, ++it) {
-    const int buf = a.buffers == 2 ? (it & 1) : 0;
-    const int64_t next = q + gridDim.x;
+  for (int64_t q = blockIdx.x; q < groups; q += gridDim.x) {
     const int n = count(q);
-    if (a.buffers == 2 && next < groups) {
-      stage_group<T, ASYNC>(c, smem + (buf ^ 1) * buf_elems,
-                            next * a.group, count(next), a);
-      if constexpr (ASYNC) cp_async_wait<1>();
-    } else {
-      if constexpr (ASYNC) cp_async_wait<0>();
-    }
+    if constexpr (ASYNC) cp_async_wait<0>();
     if ((int)threadIdx.x < n) {
       const int64_t s = q * a.group + threadIdx.x;
       bt[threadIdx.x] = make_int2((int)(s / a.Th), (int)(s % a.Th));
     }
     __syncthreads();
-    body(static_cast<const T*>(smem + buf * buf_elems),
-         static_cast<const int2*>(bt), n);
+    body(static_cast<const T*>(smem), static_cast<const int2*>(bt), n);
     __syncthreads();                         // the buffer is refilled next
-    if (a.buffers == 1 && next < groups)
+    const int64_t next = q + gridDim.x;
+    if (next < groups)
       stage_group<T, ASYNC>(c, smem, next * a.group, count(next), a);
   }
 }
@@ -533,10 +522,10 @@ slab_samples_kernel(const T* __restrict__ c, float* __restrict__ out,
       });
 }
 
-// Shared memory of a launch: `buffers` buffers of G staged slabs.
+// Shared memory of a launch: G staged slabs.
 template <typename T>
 size_t s2_smem_bytes(const S2Shape& a) {
-  return (size_t)a.buffers * a.group * a.M * a.pe * sizeof(T);
+  return (size_t)a.group * a.M * a.pe * sizeof(T);
 }
 
 // Rejects what the kernels do not take; the plan (ops/cuda/
@@ -545,8 +534,7 @@ template <typename T>
 bool s2_valid(const S2Shape& a, const void* rec) {
   const int elt = (int)sizeof(T);
   return a.B >= 1 && a.Th >= 1 && a.M >= 2 && a.V >= 2 && a.Ph >= 1 &&
-         a.S >= 2 && a.group >= 1 && a.group <= kMaxGroup &&
-         (a.buffers == 1 || a.buffers == 2) && a.pe >= a.V &&
+         a.S >= 2 && a.group >= 1 && a.group <= kMaxGroup && a.pe >= a.V &&
          (a.pe * elt) % 4 == 0 && a.s_pad % 128 == 0 && a.s_pad >= a.S &&
          (int64_t)a.group * a.M * a.pe < (1 << 30) &&
          (int64_t)a.B * a.Th < (1LL << 31) &&
@@ -646,14 +634,13 @@ int render_stage1(const void* vox, void* c, int in_dtype, int dtype,
 }
 
 // c (B, Th, M, V) -> out (B, Ph, Th) float32.  `rec`: the tap records
-// (Ph, s_pad, words) of ops/cuda/render_kernel.py::tap_records, 16-byte
-// aligned; pe, group, buffers: the plan of ops/cuda/render_kernel.py::plan.
+// of ops/cuda/render_kernel.py::tap_records (s_pad samples a ph row),
+// 16-byte aligned; pe, group: the plan of ops/cuda/render_kernel.py::plan.
 int render_stage2_scan(const void* c, float* out, int dtype, const int* rec,
                        int B, int Th, int M, int V, int Ph, int S,
-                       int s_pad, int pe, int group, int buffers,
-                       void* stream) {
+                       int s_pad, int pe, int group, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const S2Shape a{B, Th, M, V, Ph, S, s_pad, pe, group, buffers};
+  const S2Shape a{B, Th, M, V, Ph, S, s_pad, pe, group};
   const uint32_t* r = reinterpret_cast<const uint32_t*>(rec);
   if (dtype == 0) return scan<float>(c, out, r, a, st);
   if (dtype == 1) return scan<__nv_bfloat16>(c, out, r, a, st);
@@ -665,9 +652,9 @@ int render_stage2_scan(const void* c, float* out, int dtype, const int* rec,
 int render_stage2_samples(const void* c, float* out, int dtype,
                           const int* rec, int B, int Th, int M, int V,
                           int Ph, int S, int s_pad, int pe, int group,
-                          int buffers, void* stream) {
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const S2Shape a{B, Th, M, V, Ph, S, s_pad, pe, group, buffers};
+  const S2Shape a{B, Th, M, V, Ph, S, s_pad, pe, group};
   const uint32_t* r = reinterpret_cast<const uint32_t*>(rec);
   if (dtype == 0) return samples<float>(c, out, r, a, st);
   if (dtype == 1) return samples<__nv_bfloat16>(c, out, r, a, st);

@@ -45,7 +45,7 @@ about one bfloat16 rounding of those intermediates.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -103,13 +103,9 @@ def device_taps(vox_res, sph_res, z_res, rho_res, dtype, device):
 #: shared memory a K2 / K5 block may take for its slabs: the H100's 227 KB
 #: less 1 KB for the kernels' static shared memory
 SMEM_LIMIT = 226 * 1024
-#: (G, buffers) K2 and K5 ask :func:`plan` for: 4 slabs, one buffer (at
-#: the main shape faster than 2 slabs in two buffers, whose overlap of
-#: copies and work does not make up for the tap records streamed twice
-#: as often; chip_smoke.py times both)
-GROUPING = (4, 1)
-#: slabs a group may hold (the kernels' kMaxGroup)
-MAX_GROUP = 4
+#: slabs a group asks for, at most the kernels' kMaxGroup (4): each ph
+#: row's tap records are read once per group
+GROUP = 4
 
 
 def row_stride(vox_res: int, dtype: torch.dtype) -> int:
@@ -122,35 +118,24 @@ def row_stride(vox_res: int, dtype: torch.dtype) -> int:
     return words * 4 // elt
 
 
-def plan(vox_res: int, rho_res: int, dtype: torch.dtype,
-         grouping: Optional[Tuple[int, int]] = None) -> Dict[str, int]:
+def plan(vox_res: int, rho_res: int, dtype: torch.dtype) -> Dict[str, int]:
     """K2's and K5's shared memory for slabs c[b, th] of (M, V) in
-    ``dtype``: ``group`` (G) slabs per group, ``buffers`` (2: the next
-    group is staged during this one's work), the staged ``row_stride``,
-    ``slab_bytes`` and ``smem_bytes`` = buffers * G * slab_bytes.
-
-    Asks for ``grouping`` = (G, buffers), :data:`GROUPING` by default, and
-    gives up slabs of a group, then the second buffer, until the buffers
-    fit in :data:`SMEM_LIMIT`.  Raises ValueError where one slab does not
-    fit (float32 at V = 256, M = 384: 395 KB)."""
+    ``dtype``: ``group`` (G) slabs per group, :data:`GROUP` or as many as
+    fit in :data:`SMEM_LIMIT`, the staged ``row_stride``, ``slab_bytes``
+    and ``smem_bytes`` = G * slab_bytes.  Raises ValueError where one slab
+    does not fit (float32 at V = 256, M = 384: 395 KB)."""
     _dtype_code(dtype)
-    group, buffers = GROUPING if grouping is None else grouping
-    if not (1 <= group <= MAX_GROUP and buffers in (1, 2)):
-        raise ValueError(f"grouping {(group, buffers)}: G in 1..{MAX_GROUP},"
-                         f" 1 or 2 buffers")
+    if not 1 <= GROUP <= 4:
+        raise ValueError(f"GROUP {GROUP}: the kernels take 1 to 4 slabs")
     pe = row_stride(vox_res, dtype)
     slab = rho_res * pe * _ELT[dtype]
     if slab > SMEM_LIMIT:
         raise ValueError(f"a (M, V) = ({rho_res}, {vox_res}) slab of c in "
                          f"{dtype} takes {slab} bytes of shared memory, more "
                          f"than a block has ({SMEM_LIMIT})")
-    while group * buffers * slab > SMEM_LIMIT:
-        if group > 1:
-            group -= 1
-        else:
-            buffers = 1
-    return dict(group=group, buffers=buffers, row_stride=pe,
-                slab_bytes=slab, smem_bytes=group * buffers * slab)
+    group = min(GROUP, SMEM_LIMIT // slab)
+    return dict(group=group, row_stride=pe, slab_bytes=slab,
+                smem_bytes=group * slab)
 
 
 def record_row(z_res: int) -> int:
@@ -287,7 +272,7 @@ def _library():
         lib.render_stage1.restype = i
         for name in ("render_stage2_scan", "render_stage2_samples"):
             fn = getattr(lib, name)
-            fn.argtypes = [p, p, i, p] + [i] * 10 + [p]
+            fn.argtypes = [p, p, i, p] + [i] * 9 + [p]
             fn.restype = i
         _lib = lib
     return _lib
@@ -377,7 +362,7 @@ def _launch_stage2(name: str, c: torch.Tensor, out_shape: Tuple[int, ...],
         err = getattr(lib, name)(
             _ptr(c), _ptr(out), _DTYPE_CODE[compute_dtype], _ptr(_cache[key]),
             c.shape[0], sph_res, rho_res, vox_res, sph_res, z_res,
-            record_row(z_res), pl["row_stride"], pl["group"], pl["buffers"],
+            record_row(z_res), pl["row_stride"], pl["group"],
             ctypes.c_void_p(stream))
         launches[name] += 1
     _check(err, name)

@@ -245,20 +245,19 @@ def test_stage2_samples_matches_plain(device, dtype, b, v, r, z, m):
                           v, r, z, m, cd)
 
 
-@pytest.mark.parametrize("grouping", [None, (3, 2), (3, 1)])
+@pytest.mark.parametrize("group", [4, 3])
 @pytest.mark.parametrize("dtype,b,v", [
     ("bfloat16", 1, 34), ("bfloat16", 3, 34), ("float32", 1, 34),
     ("float32", 3, 34), ("bfloat16", 3, 33)])
-def test_stage2_slab_kernels_edge_shapes(device, monkeypatch, grouping,
-                                         dtype, b, v):
+def test_stage2_slab_kernels_edge_shapes(device, monkeypatch, group, dtype,
+                                         b, v):
     """K2 and K5 off the main path's shapes against their plain versions:
     M = 50, R = 32, z = 98 (S no multiple of 32 or of 4), V = 34 (a bf16
     slab of 3,400 bytes, no multiple of 16), V = 33 in bf16 (rows not
-    4-byte aligned: staged by plain loads), batch 1 and 3; groups of the
-    default plan and of G = 3 (a group across a batch boundary, a ragged
-    last group), double- and single-buffered."""
-    if grouping is not None:
-        monkeypatch.setattr(rk, "GROUPING", grouping)
+    4-byte aligned: staged by plain loads), batch 1 and 3; groups of 4
+    slabs (the plan's) and of 3 (a group across a batch boundary, a ragged
+    last group)."""
+    monkeypatch.setattr(rk, "GROUP", group)
     cd = getattr(torch, dtype)
     r, z, m = 32, 98, 50
     c = rk.stage1(_volume(b, v, 7, device), v, r, z, m, cd)

@@ -260,34 +260,35 @@ def test_tap_records_decode_to_tap_tables(shape, dtype):
     assert all(np.all(tail[k][:, s:] == 0) for k in tail)
 
 
-def test_plan_groups_and_bytes():
+def test_plan_groups_and_bytes(monkeypatch):
     bf, f32 = torch.bfloat16, torch.float32
-    # main shape, bf16: 65-word rows, 4 slabs in one buffer
-    assert rk.plan(128, 192, bf) == dict(group=4, buffers=1, row_stride=130,
+    # main shape, bf16: 65-word rows, 4 slabs
+    assert rk.plan(128, 192, bf) == dict(group=4, row_stride=130,
                                          slab_bytes=49920, smem_bytes=199680)
-    assert rk.plan(128, 192, bf, (2, 2))["smem_bytes"] == 199680
     # float32: 99 KB slabs, two of them at most
-    assert rk.plan(128, 192, f32) == dict(group=2, buffers=1, row_stride=129,
+    assert rk.plan(128, 192, f32) == dict(group=2, row_stride=129,
                                           slab_bytes=99072,
                                           smem_bytes=198144)
-    assert rk.plan(128, 192, f32, (2, 2))["group"] == 1
-    assert rk.plan(128, 192, f32, (2, 2))["buffers"] == 2
     # edge shapes: a 3,400-byte slab (no multiple of 16), odd V
     assert rk.plan(34, 50, bf)["slab_bytes"] == 3400
     assert rk.plan(33, 50, bf)["row_stride"] == 34
-    # one slab that fills a block: G = 1, one buffer
+    # slabs of more than a quarter, a third, a half of a block: G = 3, 2, 1
+    assert rk.plan(128, 250, bf)["group"] == 3
+    assert rk.plan(128, 300, bf)["group"] == 2
     assert rk.plan(256, 384, bf)["group"] == 1
-    assert rk.plan(256, 384, bf)["buffers"] == 1
     for v in range(2, 300, 7):
         for dt, elt in ((bf, 2), (f32, 4)):
             pe = rk.row_stride(v, dt)
             assert pe >= v and (pe * elt) % 4 == 0 and (pe * elt // 4) % 2
-    # a slab larger than shared memory, and groupings the kernels refuse
+    # a slab larger than shared memory
     with pytest.raises(ValueError):
         rk.plan(256, 384, f32)
-    for grouping in ((5, 1), (0, 1), (1, 3)):
-        with pytest.raises(ValueError):
-            rk.plan(128, 192, bf, grouping)
+    # fewer slabs asked for (the card tests' ragged groups), or too many
+    monkeypatch.setattr(rk, "GROUP", 3)
+    assert rk.plan(128, 192, bf)["group"] == 3
+    monkeypatch.setattr(rk, "GROUP", 5)
+    with pytest.raises(ValueError):
+        rk.plan(128, 192, bf)
 
 
 def test_library_digest_covers_headers(tmp_path, monkeypatch):
