@@ -359,18 +359,6 @@ def log_plan(what, v, m, dtype, ms, bnd):
         f"{bnd[2] / ms / 1e6:.0f} GB/s")
 
 
-@contextlib.contextmanager
-def group_as(group):
-    """K2 and K5 with groups of ``group`` slabs for the block (checks
-    only)."""
-    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
-    saved, rk.GROUP = rk.GROUP, group
-    try:
-        yield
-    finally:
-        rk.GROUP = saved
-
-
 def phase_deconv_final(device, flush):
     """K3 against ``F.conv_transpose3d`` (its plain version and the
     library call) at dec6's shape, and in float32 at a smaller size."""
@@ -963,9 +951,9 @@ def phase_edge_shapes(device):
     vector width: the scalar path) and batch 1, from float32 and bfloat16
     volumes, in both compute dtypes; K3 at (B, Cin, S) = (1, 7, 9),
     (2, 40, 33), (1, 3, 5) in bfloat16 and float32 (S not a multiple of
-    8: the CUDA cores); K2 and K5 at V = 34 and 33, M = 50, R = 32,
-    z = 98, batch 1 and 3, groups of 4 and 3 slabs; the wrapper's
-    ValueError for a slab larger than shared memory."""
+    8: the CUDA cores); K2 and K5 at V = 34 and 33, M = 50, R = 32 and
+    30, z = 98, batch 1 and 3, in the plan's groups of 4 slabs; the
+    wrapper's ValueError for a slab larger than shared memory."""
     import torch
     import torch.nn.functional as F
     from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
@@ -1014,28 +1002,28 @@ def phase_edge_shapes(device):
             worst[f"K3 {(b, cin, s)} {str(dt)[6:]}"] = float(d.max()) / scale
     # K2 and K5: S = 98 (no multiple of 32 or 4), a bf16 slab of 3,400
     # bytes (no multiple of 16), V = 33 bf16 (rows not 4-byte aligned:
-    # plain-load staging), batch 1 and 3; the plan's G = 4 and G = 3 (a
-    # group across the batch boundary, a ragged last group)
-    r, z, m = 32, 98, 50
-    for v, cd, b in ((34, bf, 1), (34, bf, 3), (34, f32, 1), (34, f32, 3),
-                     (33, bf, 3)):
-        c = rk.stage1(volume(b, v, 13, device), v, r, z, m, cd)
-        refs = (rk.stage2_plain(c, v, r, z, m, cd),
-                rk.stage2_samples_plain(c, v, r, z, m, cd))
-        for group in (rk.GROUP, 3):
-            with group_as(group):
-                for name, fn, ref in (("K2", rk.stage2, refs[0]),
-                                      ("K5", rk.stage2_samples, refs[1])):
-                    out = fn(c, v, r, z, m, cd)
-                    torch.cuda.synchronize()
-                    d = (out - ref).abs()
-                    err = (float(d.max()), float(d.mean()))
-                    ok = err[0] < 1e-5 if cd == f32 else (err[0] < 3e-2 and
-                                                          err[1] < 2e-3)
-                    check(ok, f"{name} at V={v}, batch {b}, {cd}, "
-                              f"G {group}: {err}")
-                    key = f"{name} V={v} b={b} {str(cd)[6:]}"
-                    worst[key] = max(worst.get(key, 0.0), err[0])
+    # plain-load staging), batch 1 and 3, the plan's 4 slabs a group:
+    # R = 32 fills the groups, R = 30 leaves a ragged last group and, at
+    # batch 3, a group across a batch boundary
+    z, m = 98, 50
+    for r in (32, 30):
+        for v, cd, b in ((34, bf, 1), (34, bf, 3), (34, f32, 1),
+                         (34, f32, 3), (33, bf, 3)):
+            check(rk.plan(v, m, cd)["group"] == 4,
+                  f"plan at V={v}, {cd}: {rk.plan(v, m, cd)}")
+            c = rk.stage1(volume(b, v, 13, device), v, r, z, m, cd)
+            for name, fn, plain in (
+                    ("K2", rk.stage2, rk.stage2_plain),
+                    ("K5", rk.stage2_samples, rk.stage2_samples_plain)):
+                out = fn(c, v, r, z, m, cd)
+                torch.cuda.synchronize()
+                d = (out - plain(c, v, r, z, m, cd)).abs()
+                err = (float(d.max()), float(d.mean()))
+                ok = err[0] < 1e-5 if cd == f32 else (err[0] < 3e-2 and
+                                                      err[1] < 2e-3)
+                check(ok, f"{name} at V={v}, R={r}, batch {b}, {cd}: {err}")
+                key = f"{name} V={v} b={b} {str(cd)[6:]}"
+                worst[key] = max(worst.get(key, 0.0), err[0])
     # a slab larger than shared memory: the wrapper raises, nothing runs
     rk.reset_launches()
     big = torch.zeros((1, 8, 384, 256), device=device)

@@ -1,7 +1,10 @@
 // Asynchronous-copy helpers for Hopper (sm_90a), one copy for the port's
 // kernels: shared-memory addresses, mbarriers and TMA tensor copies (K3,
 // deconv_final_kernel.cu), and the 4-byte cp.async copies that stage the
-// renderer's slabs (K2, K5, render_kernel.cu).
+// renderer's slabs (K2, K5, render_kernel.cu).  The mbarrier and TMA half
+// has one user, K3: the renderer stages its slabs at a padded row stride,
+// which a TMA copy of a contiguous slab cannot write, so it takes
+// smem_addr and the cp.async half only.
 #pragma once
 
 #include <cuda.h>

@@ -103,9 +103,9 @@ def device_taps(vox_res, sph_res, z_res, rho_res, dtype, device):
 #: shared memory a K2 / K5 block may take for its slabs: the H100's 227 KB
 #: less 1 KB for the kernels' static shared memory
 SMEM_LIMIT = 226 * 1024
-#: slabs a group asks for, at most the kernels' kMaxGroup (4): each ph
-#: row's tap records are read once per group
-GROUP = 4
+#: slabs a group holds at most, the kernels' kMaxGroup: each ph row's tap
+#: records are read once per group
+MAX_GROUP = 4
 
 
 def row_stride(vox_res: int, dtype: torch.dtype) -> int:
@@ -120,20 +120,18 @@ def row_stride(vox_res: int, dtype: torch.dtype) -> int:
 
 def plan(vox_res: int, rho_res: int, dtype: torch.dtype) -> Dict[str, int]:
     """K2's and K5's shared memory for slabs c[b, th] of (M, V) in
-    ``dtype``: ``group`` (G) slabs per group, :data:`GROUP` or as many as
-    fit in :data:`SMEM_LIMIT`, the staged ``row_stride``, ``slab_bytes``
+    ``dtype``: ``group`` (G) slabs per group, :data:`MAX_GROUP` or as many
+    as fit in :data:`SMEM_LIMIT`, the staged ``row_stride``, ``slab_bytes``
     and ``smem_bytes`` = G * slab_bytes.  Raises ValueError where one slab
     does not fit (float32 at V = 256, M = 384: 395 KB)."""
     _dtype_code(dtype)
-    if not 1 <= GROUP <= 4:
-        raise ValueError(f"GROUP {GROUP}: the kernels take 1 to 4 slabs")
     pe = row_stride(vox_res, dtype)
     slab = rho_res * pe * _ELT[dtype]
     if slab > SMEM_LIMIT:
         raise ValueError(f"a (M, V) = ({rho_res}, {vox_res}) slab of c in "
                          f"{dtype} takes {slab} bytes of shared memory, more "
                          f"than a block has ({SMEM_LIMIT})")
-    group = min(GROUP, SMEM_LIMIT // slab)
+    group = min(MAX_GROUP, SMEM_LIMIT // slab)
     return dict(group=group, row_stride=pe, slab_bytes=slab,
                 smem_bytes=group * slab)
 
@@ -185,37 +183,14 @@ def tap_records(vox_res: int, sph_res: int, z_res: int, rho_res: int,
     return _cache[key]
 
 
-def decode_records(rec: torch.Tensor, dtype: torch.dtype,
-                   z_res: int) -> Dict[str, np.ndarray]:
-    """:func:`tap_records` back to ``tap_tables``' form over the first
-    ``z_res`` samples: z_lo, m_lo int32 (Ph, S), z_w, m_w float32 (Ph, S,
-    2)."""
-    ph, n_w = rec.shape[:2]
-    r = rec.numpy().transpose(0, 2, 1, 3).reshape(ph, -1, n_w)[:, :z_res]
-    if dtype == torch.float32:
-        f = r[..., 2:].view(np.float32)
-        return {"z_lo": r[..., 0], "m_lo": r[..., 1],
-                "z_w": f[..., 0:2], "m_w": f[..., 2:4]}
-    u = r.view(np.uint32)
-
-    def halves(x):                       # bf16 pair -> float32 (..., 2)
-        return np.stack([x << 16, x & 0xFFFF0000], -1).astype(
-            np.uint32).view(np.float32)
-
-    return {"z_lo": (u[..., 0] & 0xFFFF).astype(np.int32),
-            "m_lo": (u[..., 0] >> 16).astype(np.int32),
-            "z_w": halves(u[..., 1]), "m_w": halves(u[..., 2])}
-
-
 # ------------------------------------------------------------ plain versions
 #: angles per einsum chunk of the plain versions (bounds the f32
-#: intermediates t1 / t2 to ~0.8 / 1.6 GB at batch 8)
+#: intermediates t1 / t2 to ~0.8 / 1.6 GB at batch 8); the last chunk
+#: takes what is left
 CHUNK = 8
 
 
 def _chunks(n: int):
-    if n % CHUNK:
-        raise ValueError(f"sph_res {n} is not a multiple of {CHUNK}")
     return range(0, n, CHUNK)
 
 

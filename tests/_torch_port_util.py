@@ -77,3 +77,25 @@ def flax_kernel_to_wcat(kernel: np.ndarray) -> np.ndarray:
     phases = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
     return np.concatenate([kernel[a::2, b::2, c::2] for a, b, c in phases],
                           axis=-1)
+
+
+def decode_records(rec: torch.Tensor, dtype: torch.dtype,
+                   z_res: int) -> dict:
+    """The renderer's tap records (``render_kernel.tap_records``) back to
+    ``tap_tables``' form over the first ``z_res`` samples: z_lo, m_lo
+    int32 (Ph, S), z_w, m_w float32 (Ph, S, 2)."""
+    ph, n_w = rec.shape[:2]
+    r = rec.numpy().transpose(0, 2, 1, 3).reshape(ph, -1, n_w)[:, :z_res]
+    if dtype == torch.float32:
+        f = r[..., 2:].view(np.float32)
+        return {"z_lo": r[..., 0], "m_lo": r[..., 1],
+                "z_w": f[..., 0:2], "m_w": f[..., 2:4]}
+    u = r.view(np.uint32)
+
+    def halves(x):                       # bf16 pair -> float32 (..., 2)
+        return np.stack([x << 16, x & 0xFFFF0000], -1).astype(
+            np.uint32).view(np.float32)
+
+    return {"z_lo": (u[..., 0] & 0xFFFF).astype(np.int32),
+            "m_lo": (u[..., 0] >> 16).astype(np.int32),
+            "z_w": halves(u[..., 1]), "m_w": halves(u[..., 2])}

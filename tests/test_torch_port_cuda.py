@@ -245,21 +245,20 @@ def test_stage2_samples_matches_plain(device, dtype, b, v, r, z, m):
                           v, r, z, m, cd)
 
 
-@pytest.mark.parametrize("group", [4, 3])
+@pytest.mark.parametrize("r", [32, 30])
 @pytest.mark.parametrize("dtype,b,v", [
     ("bfloat16", 1, 34), ("bfloat16", 3, 34), ("float32", 1, 34),
     ("float32", 3, 34), ("bfloat16", 3, 33)])
-def test_stage2_slab_kernels_edge_shapes(device, monkeypatch, group, dtype,
-                                         b, v):
+def test_stage2_slab_kernels_edge_shapes(device, r, dtype, b, v):
     """K2 and K5 off the main path's shapes against their plain versions:
-    M = 50, R = 32, z = 98 (S no multiple of 32 or of 4), V = 34 (a bf16
-    slab of 3,400 bytes, no multiple of 16), V = 33 in bf16 (rows not
-    4-byte aligned: staged by plain loads), batch 1 and 3; groups of 4
-    slabs (the plan's) and of 3 (a group across a batch boundary, a ragged
-    last group)."""
-    monkeypatch.setattr(rk, "GROUP", group)
+    M = 50, z = 98 (S no multiple of 32 or of 4), V = 34 (a bf16 slab of
+    3,400 bytes, no multiple of 16), V = 33 in bf16 (rows not 4-byte
+    aligned: staged by plain loads), batch 1 and 3, in the plan's groups
+    of 4 slabs: R = 32 fills them; R = 30 leaves a ragged last group and,
+    at batch 3, puts a group across a batch boundary."""
     cd = getattr(torch, dtype)
-    r, z, m = 32, 98, 50
+    z, m = 98, 50
+    assert rk.plan(v, m, cd)["group"] == 4
     c = rk.stage1(_volume(b, v, 7, device), v, r, z, m, cd)
     rk.reset_launches()
     depth = rk.stage2(c, v, r, z, m, cd)

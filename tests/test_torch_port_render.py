@@ -19,6 +19,8 @@ from genre_shapehd_tpu.ops.render_sph_fast import \
 from genre_shapehd_tpu_torch.ops import render_sph_fast as trs
 from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
 
+from _torch_port_util import decode_records
+
 torch.set_num_threads(2)
 
 # the sizes of tests/test_pallas_render.py
@@ -176,7 +178,7 @@ def _record_taps(dtype, z_res):
     """K2's and K5's tap records decoded over the padded row (zero weights
     past S), with the products w_ij = m_w_i * z_w_j the kernels form."""
     pad = rk.record_row(z_res)
-    d = rk.decode_records(rk.tap_records(V, R, z_res, M, dtype), dtype, pad)
+    d = decode_records(rk.tap_records(V, R, z_res, M, dtype), dtype, pad)
     wz, wr = torch.from_numpy(d["z_w"]), torch.from_numpy(d["m_w"])
     return (torch.from_numpy(d["z_lo"]).long(),
             torch.from_numpy(d["m_lo"]).long(),
@@ -249,18 +251,18 @@ def test_tap_records_decode_to_tap_tables(shape, dtype):
     assert rec.dtype == torch.int32
     assert tuple(rec.shape) == (shape[1], words, pad // 4, 4)
     taps = trs.tap_tables(*shape)
-    got = rk.decode_records(rec, cd, s)
+    got = decode_records(rec, cd, s)
     for k in ("z_lo", "m_lo"):
         np.testing.assert_array_equal(got[k], taps[k])
     for k in ("z_w", "m_w"):                   # rounded to the compute dtype
         np.testing.assert_array_equal(
             got[k], torch.from_numpy(taps[k]).to(cd).float().numpy())
     # past S every record is zero: no tap, no weight
-    tail = rk.decode_records(rec, cd, pad)
+    tail = decode_records(rec, cd, pad)
     assert all(np.all(tail[k][:, s:] == 0) for k in tail)
 
 
-def test_plan_groups_and_bytes(monkeypatch):
+def test_plan_groups_and_bytes():
     bf, f32 = torch.bfloat16, torch.float32
     # main shape, bf16: 65-word rows, 4 slabs
     assert rk.plan(128, 192, bf) == dict(group=4, row_stride=130,
@@ -280,15 +282,11 @@ def test_plan_groups_and_bytes(monkeypatch):
         for dt, elt in ((bf, 2), (f32, 4)):
             pe = rk.row_stride(v, dt)
             assert pe >= v and (pe * elt) % 4 == 0 and (pe * elt // 4) % 2
+    # never more than the kernels' 4 slabs, however small the slab
+    assert rk.plan(34, 50, f32)["group"] == rk.MAX_GROUP == 4
     # a slab larger than shared memory
     with pytest.raises(ValueError):
         rk.plan(256, 384, f32)
-    # fewer slabs asked for (the card tests' ragged groups), or too many
-    monkeypatch.setattr(rk, "GROUP", 3)
-    assert rk.plan(128, 192, bf)["group"] == 3
-    monkeypatch.setattr(rk, "GROUP", 5)
-    with pytest.raises(ValueError):
-        rk.plan(128, 192, bf)
 
 
 def test_library_digest_covers_headers(tmp_path, monkeypatch):

@@ -22,6 +22,8 @@ from genre_shapehd_tpu.ops.render_sph_fast import (
 from genre_shapehd_tpu_torch import ops as tops
 from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
 
+from _torch_port_util import decode_records
+
 torch.set_num_threads(2)
 
 V, R, Z, M = 32, 32, 64, 64
@@ -60,7 +62,7 @@ def _k5_lane_split(c, dtype, z_res):
     + w11 c[m0+1, z0+1] for s = 4 (32 j + l) + i, and store the 4 values
     as one float4 where S is a multiple of 4, else one by one below S."""
     pad = rk.record_row(z_res)
-    d = rk.decode_records(rk.tap_records(V, R, z_res, M, dtype), dtype, pad)
+    d = decode_records(rk.tap_records(V, R, z_res, M, dtype), dtype, pad)
     z0, m0 = (torch.from_numpy(d[k]).long() for k in ("z_lo", "m_lo"))
     wz, wr = torch.from_numpy(d["z_w"]), torch.from_numpy(d["m_w"])
     slabs = c.float().reshape(-1, M, V)
@@ -93,6 +95,25 @@ def test_k5_lane_split_matches_plain_and_s2_kernel(z_res):
     d = np.abs(_k5_lane_split(c, torch.bfloat16, z_res).numpy() - ref)
     # tests/test_pallas_render.py's bounds
     assert d.mean() < 2e-3 and d.max() < 3e-2, (d.mean(), d.max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_sampling_takes_a_ragged_last_angle_chunk(dtype):
+    """R = 30 angles, no multiple of the plain versions' 8 a chunk (the
+    card tests' edge shape, where 4-slab groups cross a batch boundary):
+    K1's and K5's plain versions against ``sample_rays_mxu`` in chunks of
+    6."""
+    r = 30
+    vox = _volume(2, 12)
+    ref = np.asarray(sample_rays_mxu(jnp.asarray(vox), r, Z, M, chunk=6,
+                                     compute_dtype=getattr(jnp, dtype)))
+    cd = getattr(torch, dtype)
+    c = rk.stage1(torch.from_numpy(vox), V, r, Z, M, cd)
+    got = rk.stage2_samples(c, V, r, Z, M, cd).numpy()
+    assert got.shape == ref.shape == (2, r, r, Z)
+    # the same einsums with the same bf16 rounding points, f32 sums in
+    # another order
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
