@@ -10,10 +10,17 @@ as themselves, any other class becomes an inert stand-in that keeps the
 arguments and state the pickle hands it: optax's ``ScaleByAdamState``
 (a NamedTuple, pickled by NEWOBJ) keeps ``(count, mu, nu)`` in ``args``,
 which ``train/state.py::adam_moments`` reads.
+
+:func:`save_checkpoint` writes the other way round: a :class:`Foreign`
+tuple pickles as the NamedTuple of another package that its class names
+by ``pickle_as = (module, qualname)``, without importing that package, so
+that the JAX package unpickles optax's own state classes from a checkpoint
+the port wrote.
 """
 
 from __future__ import annotations
 
+import copyreg
 import os
 import pickle
 from typing import Any, Dict, Optional, Tuple
@@ -57,17 +64,49 @@ class _RestrictedUnpickler(pickle.Unpickler):
         return self._stand_ins[key]
 
 
+class Foreign(tuple):
+    """A NamedTuple of another package, written by reference: a subclass
+    sets ``pickle_as = (module, qualname)`` and its instances pickle as
+    ``qualname.__new__(cls, *fields)`` (NEWOBJ, as a NamedTuple pickles),
+    so the class is imported only where the pickle is loaded."""
+
+    pickle_as: Tuple[str, str] = ("", "")
+
+    def __new__(cls, *fields):
+        return super().__new__(cls, fields)
+
+    def __reduce_ex__(self, protocol):
+        return copyreg.__newobj__, (type(self), *self)
+
+
+class _Pickler(pickle._Pickler):
+    """The pure-Python pickler with one change: a :class:`Foreign` class is
+    written as the global its ``pickle_as`` names.  (The C pickler imports
+    a class's module to check the reference, which would need the other
+    package here.)"""
+
+    def save_global(self, obj, name=None):
+        if not (isinstance(obj, type) and issubclass(obj, Foreign)):
+            return super().save_global(obj, name)
+        module, qualname = obj.pickle_as
+        self.save(module)
+        self.save(qualname)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         return _RestrictedUnpickler(f).load()
 
 
 def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
-    """Write ``payload`` (numpy trees only) atomically."""
+    """Write ``payload`` (numpy trees and :class:`Foreign` tuples)
+    atomically."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+        _Pickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(payload)
     os.replace(tmp, path)
 
 

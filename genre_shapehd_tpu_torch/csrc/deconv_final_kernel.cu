@@ -51,11 +51,33 @@
 //   - the epilogue adds the float32 bias, rounds once to bf16 and stores
 //     the pair (2k, 2k+1) of one output row as 4 bytes (phases are ordered
 //     (a, e, f), so a thread's accumulator columns 2t, 2t + 1 are f = 0, 1).
-// float32 (dtype 0, the tests' 1e-5 checks: TF32 cannot hold them) and
-// the bf16 shapes this tiling does not take (S > 64, S not a multiple of
-// 8: TMA's strides are whole 16-byte units, Cin > 288) run a CUDA-core
-// kernel: one thread per 4 input positions, the weight in shared memory.
-//
+// float32 (dtype 0, the default command's type; the tests' 1e-5 checks,
+// which TF32 cannot hold, and 3xTF32 on this GEMM would carry its
+// structured zeros: 2.25x the useful products three times over, no faster
+// than the CUDA cores' 160 us) and the bf16 shapes this tiling does not
+// take (S > 64, S not a multiple of 8, Cin > 288) run on the CUDA cores:
+//   - per axis, output 2p + a takes input p + d - 1 through tap 3 + a -
+//     2d for d - a in {0, 1}, so one input value feeds 4 (output, tap)
+//     pairs per axis, 64 in 3-D;
+//   - a thread computes all 8 phases of a 2 x 2 x 2 block of input
+//     positions (i, j, k pairs): per channel 512 FMAs from the block's
+//     4 x 4 x 4 neighbourhood, 16 rows of 4 values read from shared
+//     memory as an aligned pair and two single values (8 FMAs a value),
+//     and the
+//     channel's 64 weights, the same for every thread, read as 16-byte
+//     broadcasts;
+//   - a tile is 4 x 8 rows of (i, j) by 64 positions along k, a warp
+//     per 2 x 2 rows (a lane per k pair), 8 warps; per chunk of 4
+//     channels one TMA copy stages the tile with its halo, (6, 10, 68)
+//     values a channel (rows of 72 floats, 80 bf16, from 16 bytes before
+//     the tile: TMA wants a box's innermost start 16-byte aligned),
+//     zero-filled outside the volume and past Cin; where TMA cannot
+//     describe x (rows not whole 16-byte units: S not a multiple of 4,
+//     of 8 in bf16) the threads stage it with plain loads;
+//   - persistent blocks, one per SM, walk the tiles; two stages, so the
+//     next chunk's copy runs during this chunk's FMAs.  Each stage holds
+//     its chunk's weights too (rounded to x's type), loaded one per
+//     thread during the previous chunk: any Cin.
 // Accumulation and the bias add are float32; the result is rounded once
 // to the output type (as the Pallas kernel does).
 // `dtype` 0 = float32 x/out, 1 = bfloat16.  The entry point returns
@@ -69,8 +91,6 @@
 #include "hopper_async.cuh"
 
 namespace {
-
-constexpr int kRows = 4;    // input positions per thread along i
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -92,130 +112,6 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
                                            float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// ------------------------------------------------------------- CUDA cores
-// float32, and bf16 at S > 64: one thread per kRows input positions.
-template <typename T>
-__global__ void deconv_final_fma_kernel(const T* __restrict__ x,
-                                        const float* __restrict__ w,
-                                        const float* __restrict__ bias,
-                                        T* __restrict__ out, int B, int Cin,
-                                        int S) {
-  constexpr int R = kRows;
-  extern __shared__ float4 sw4[];            // (Cin, 64) floats
-  float* sw = reinterpret_cast<float*>(sw4);
-  // the weight, rounded to T (the value a cast of it to T gives)
-  for (int t = threadIdx.x; t < Cin * 64; t += blockDim.x)
-    sw[t] = to_f32(from_f32<T>(__ldg(w + t)));
-  __syncthreads();
-
-  // thread n owns input positions (i0 .. i0+R-1, j, k) of batch item b
-  const int SI = (S + R - 1) / R;
-  const int64_t n = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t S3 = (int64_t)S * S * S;
-  if (n >= (int64_t)B * SI * S * S) return;
-  const int k = (int)(n % S);
-  const int j = (int)((n / S) % S);
-  const int i0 = (int)((n / ((int64_t)S * S)) % SI) * R;
-  const int b = (int)(n / ((int64_t)SI * S * S));
-
-  // the (R+2) x 3 x 3 neighbourhood; false where it leaves the volume
-  bool ok_i[R + 2], ok_j[3], ok_k[3];
-#pragma unroll
-  for (int d = 0; d < R + 2; ++d)
-    ok_i[d] = (unsigned)(i0 + d - 1) < (unsigned)S;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    ok_j[d] = (unsigned)(j + d - 1) < (unsigned)S;
-    ok_k[d] = (unsigned)(k + d - 1) < (unsigned)S;
-  }
-  const T* xc = x + (int64_t)b * Cin * S3 + ((int64_t)i0 * S + j) * S + k;
-
-  float acc[R][2][2][2];
-#pragma unroll
-  for (int a = 0; a < R * 8; ++a) (&acc[0][0][0][0])[a] = 0.f;
-
-  for (int c = 0; c < Cin; ++c, xc += S3) {
-    float wc[64];
-    const float4* wv = sw4 + c * 16;
-#pragma unroll
-    for (int q = 0; q < 16; ++q) {
-      const float4 v = wv[q];
-      wc[4 * q] = v.x; wc[4 * q + 1] = v.y;
-      wc[4 * q + 2] = v.z; wc[4 * q + 3] = v.w;
-    }
-#pragma unroll
-    for (int pi = 0; pi < R + 2; ++pi) {      // input plane i0 + pi - 1
-#pragma unroll
-      for (int dj = 0; dj < 3; ++dj) {
-#pragma unroll
-        for (int dk = 0; dk < 3; ++dk) {
-          float v = 0.f;
-          if (ok_i[pi] && ok_j[dj] && ok_k[dk])
-            v = to_f32(xc[((int64_t)(pi - 1) * S + (dj - 1)) * S + (dk - 1)]);
-          // for position r the plane sits at offset di = pi - r (0..2,
-          // i.e. i + di - 1); offset d feeds phase a when d - a is 0 or
-          // 1, with tap 3 + a - 2d
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const int di = pi - r;
-            if (di < 0 || di > 2) continue;
-#pragma unroll
-            for (int a = 0; a < 2; ++a) {
-              if (di - a < 0 || di - a > 1) continue;
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                if (dj - e < 0 || dj - e > 1) continue;
-#pragma unroll
-                for (int f = 0; f < 2; ++f) {
-                  if (dk - f < 0 || dk - f > 1) continue;
-                  const int tap =
-                      ((3 + a - 2 * di) * 4 + (3 + e - 2 * dj)) * 4 +
-                      (3 + f - 2 * dk);
-                  acc[r][a][e][f] = fmaf(v, wc[tap], acc[r][a][e][f]);
-                }
-              }
-            }
-          }
-        }
-      }
-    }
-  }
-
-  const float bv = __ldg(bias);
-  const int64_t O = 2 * (int64_t)S;
-  T* ob = out + (int64_t)b * O * O * O;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (i0 + r >= S) break;
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        store_pair(
-            ob + ((2 * (int64_t)(i0 + r) + a) * O + (2 * j + e)) * O + 2 * k,
-            acc[r][a][e][0] + bv, acc[r][a][e][1] + bv);
-  }
-}
-
-template <typename T>
-int launch(const void* x, const float* w, const float* bias, void* out, int B,
-           int Cin, int S, cudaStream_t st) {
-  const int block = 128;
-  const int64_t n = (int64_t)B * ((S + kRows - 1) / kRows) * S * S;
-  const int64_t grid = (n + block - 1) / block;
-  const size_t smem = (size_t)Cin * 64 * sizeof(float);
-  if (grid > 0x7fffffff || smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        deconv_final_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  deconv_final_fma_kernel<T><<<(unsigned)grid, block, smem, st>>>(
-      static_cast<const T*>(x), w, bias, static_cast<T*>(out), B, Cin, S);
-  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ tensor cores
@@ -483,6 +379,316 @@ int launch_mma(const void* x, const float* w, const float* bias, void* out,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------- CUDA cores
+constexpr int kFI = 4, kFJ = 8;              // (i, j) rows per tile
+constexpr int kFWarps = (kFI / 2) * (kFJ / 2);  // a warp per 2 x 2 rows
+constexpr int kFHI = kFI + 2, kFHJ = kFJ + 2;   // the staged halo extents
+constexpr int kFK = 64;                      // positions along k per tile
+constexpr int kFCh = 4;                      // channels per stage
+
+// A staged row starts 16 bytes before k0 (TMA faults on a box whose
+// innermost start is not 16-byte aligned): slot s holds k0 - kLead + s,
+// and k0 - 1 .. k0 + 64 are read.  Rows are whole 16-byte units (TMA's
+// box rows): 72 floats or 80 bf16.
+template <typename T> __host__ __device__ constexpr int fma_lead() {
+  return 16 / (int)sizeof(T);
+}
+template <typename T> __host__ __device__ constexpr int fma_row() {
+  return (fma_lead<T>() + 65 + fma_lead<T>() - 1) / fma_lead<T>() *
+         fma_lead<T>();
+}
+template <typename T> __host__ __device__ constexpr int fma_x_bytes() {
+  return kFCh * kFHI * kFHJ * fma_row<T>() * (int)sizeof(T);
+}
+// A stage: the x tile of kFCh channels, then their (kFCh, 64) weights.
+template <typename T> __host__ __device__ constexpr int fma_stage_bytes() {
+  return fma_x_bytes<T>() + kFCh * 64 * 4;
+}
+// 1 KB of slack to align the stages, two stages, two mbarriers.
+template <typename T> __host__ __device__ constexpr int fma_smem_bytes() {
+  return 1024 + 2 * fma_stage_bytes<T>() + 16;
+}
+
+// Two neighbouring values of a staged row as floats (p 4 or 8 bytes
+// aligned).
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Tiles: (b, ti, tj, tk) with tk fastest; tile rows i0 = 4 ti, j0 = 8 tj,
+// positions k0 = 64 tk.  A step is one chunk of kFCh channels of a tile.
+struct FmaGrid {
+  int S, Cin, TIn, TJn, TKn, chunks;
+  __device__ void origin(int tile, int& b, int& i0, int& j0, int& k0) const {
+    k0 = tile % TKn * kFK;
+    j0 = tile / TKn % TJn * kFJ;
+    i0 = tile / (TKn * TJn) % TIn * kFI;
+    b = tile / (TKn * TJn * TIn);
+  }
+};
+
+// The stage of chunk n of a tile by plain loads, for shapes TMA cannot
+// describe: the same layout and zero fill as the TMA copy.
+template <typename T>
+__device__ void stage_x_plain(const T* __restrict__ x, T* xs,
+                              const FmaGrid& g, int tile, int n) {
+  constexpr int R = fma_row<T>(), L = fma_lead<T>();
+  int b, i0, j0, k0;
+  g.origin(tile, b, i0, j0, k0);
+  const int S = g.S;
+  for (int e = threadIdx.x; e < kFCh * kFHI * kFHJ * 66; e += blockDim.x) {
+    const int s = e % 66, row = e / 66;
+    const int hj = row % kFHJ, hi = row / kFHJ % kFHI, c = row / (kFHJ * kFHI);
+    const int k = k0 - 1 + s, j = j0 - 1 + hj, i = i0 - 1 + hi;
+    const int ch = n * kFCh + c;
+    T v = from_f32<T>(0.f);
+    if ((unsigned)k < (unsigned)S && (unsigned)j < (unsigned)S &&
+        (unsigned)i < (unsigned)S && ch < g.Cin)
+      v = x[((((int64_t)b * g.Cin + ch) * S + i) * S + j) * S + k];
+    xs[row * R + L - 1 + s] = v;
+  }
+}
+
+// Persistent: block n walks tiles n, n + gridDim.x, ...  Thread 0 starts
+// the next step's TMA copy (the next tile's first chunk at a tile's end)
+// into the other stage before this step computes; each thread loads one
+// weight of the next step then and stores it after the FMAs.  Warp (wi,
+// wj) owns rows i0 + 2 wi + {0, 1}, j0 + 2 wj + {0, 1}; lane l owns k0 +
+// 2 l + {0, 1}.
+template <typename T, bool kTma>
+__global__ void __launch_bounds__(kFWarps * 32, 1)
+deconv_final_fma_kernel(__grid_constant__ const CUtensorMap tmap,
+                        const T* __restrict__ x, const float* __restrict__ w,
+                        const float* __restrict__ bias, T* __restrict__ out,
+                        int B, int Cin, int S) {
+  constexpr int R = fma_row<T>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  FmaGrid g;
+  g.S = S;
+  g.Cin = Cin;
+  g.TIn = (S + kFI - 1) / kFI;
+  g.TJn = (S + kFJ - 1) / kFJ;
+  g.TKn = (S + kFK - 1) / kFK;
+  g.chunks = (Cin + kFCh - 1) / kFCh;
+  const int tiles = B * g.TIn * g.TJn * g.TKn;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wi = warp / (kFJ / 2), wj = warp % (kFJ / 2);
+  auto xs_of = [&](int buf) {
+    return reinterpret_cast<T*>(smem + buf * fma_stage_bytes<T>());
+  };
+  auto ws_of = [&](int buf) {
+    return reinterpret_cast<float*>(smem + buf * fma_stage_bytes<T>() +
+                                    fma_x_bytes<T>());
+  };
+  const uint32_t bar0 = smem_addr(smem + 2 * fma_stage_bytes<T>());
+  // this thread's weight of a step: channel n * kFCh + t / 64, tap t % 64,
+  // rounded to T (the value a cast of it to T gives)
+  auto weight = [&](int n) {
+    const int ch = n * kFCh + (int)threadIdx.x / 64;
+    return ch < Cin
+               ? to_f32(from_f32<T>(__ldg(w + ch * 64 + threadIdx.x % 64)))
+               : 0.f;
+  };
+  auto stage = [&](int tile, int n, int buf) {
+    if constexpr (kTma) {
+      if (threadIdx.x == 0) {
+        int b, i0, j0, k0;
+        g.origin(tile, b, i0, j0, k0);
+        const uint32_t bar = bar0 + 8 * buf;
+        mbar_expect_tx(bar, fma_x_bytes<T>());
+        tma_load_5d(smem_addr(xs_of(buf)), &tmap, k0 - fma_lead<T>(), j0 - 1,
+                    i0 - 1, n * kFCh, b, bar);
+      }
+    } else {
+      stage_x_plain<T>(x, xs_of(buf), g, tile, n);
+    }
+  };
+  if (kTma && threadIdx.x == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (blockIdx.x < tiles) {
+    stage(blockIdx.x, 0, 0);
+    ws_of(0)[threadIdx.x] = weight(0);
+  }
+  __syncthreads();
+
+  const float bv = __ldg(bias);
+  const int64_t O = 2 * (int64_t)S;
+  int buf = 0;
+  uint32_t phase = 0;                        // per stage, its next parity
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int b, i0, j0, k0;
+    g.origin(tile, b, i0, j0, k0);
+    // acc[r][q][p][a][e][f]: position (i0 + 2 wi + r, j0 + 2 wj + q, k0 +
+    // 2 lane + p), phase (a, e, f)
+    float acc[64];
+#pragma unroll
+    for (int u = 0; u < 64; ++u) acc[u] = 0.f;
+    for (int n = 0; n < g.chunks; ++n, buf ^= 1) {
+      const bool last = n + 1 == g.chunks;
+      const bool more = !last || tile + (int)gridDim.x < tiles;
+      const int next_tile = last ? tile + (int)gridDim.x : tile;
+      const int next_n = last ? 0 : n + 1;
+      float w_next = 0.f;
+      if (more) {
+        w_next = weight(next_n);
+        stage(next_tile, next_n, buf ^ 1);
+      }
+      if constexpr (kTma) {
+        mbar_wait(bar0 + 8 * buf, (phase >> buf) & 1);
+        phase ^= 1u << buf;
+      }
+      // this lane's first value, k0 + 2 lane - 1, at slot 2 lane + L - 1
+      const T* xs = xs_of(buf) + ((2 * wi) * kFHJ + 2 * wj) * R + 2 * lane +
+                    fma_lead<T>() - 1;
+      const float4* ws = reinterpret_cast<const float4*>(ws_of(buf));
+#pragma unroll 1
+      for (int c = 0; c < kFCh; ++c, xs += kFHI * kFHJ * R, ws += 16) {
+        float wc[64];
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+          const float4 v = ws[t];
+          wc[4 * t] = v.x;
+          wc[4 * t + 1] = v.y;
+          wc[4 * t + 2] = v.z;
+          wc[4 * t + 3] = v.w;
+        }
+#pragma unroll
+        for (int pi = 0; pi < 4; ++pi) {      // input plane i0 + 2 wi + pi - 1
+#pragma unroll
+          for (int pj = 0; pj < 4; ++pj) {    // input row j0 + 2 wj + pj - 1
+            // v[u]: input k0 + 2 lane + u - 1; the middle pair is
+            // aligned, the ends are single loads
+            const T* row = xs + (pi * kFHJ + pj) * R;
+            const float2 mid = load2(row + 1);
+            const float v[4] = {to_f32(row[0]), mid.x, mid.y, to_f32(row[3])};
+            // position r of the block sees the plane at offset di = pi - r
+            // (input i + di - 1), which feeds phase a where di - a is 0 or
+            // 1, through tap 3 + a - 2 di; likewise (q, dj, e), (p, dk, f)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int di = pi - r;
+#pragma unroll
+              for (int a = 0; a < 2; ++a) {
+                if (di - a < 0 || di - a > 1) continue;
+#pragma unroll
+                for (int q = 0; q < 2; ++q) {
+                  const int dj = pj - q;
+#pragma unroll
+                  for (int e = 0; e < 2; ++e) {
+                    if (dj - e < 0 || dj - e > 1) continue;
+#pragma unroll
+                    for (int p = 0; p < 2; ++p)
+#pragma unroll
+                      for (int f = 0; f < 2; ++f)
+#pragma unroll
+                        for (int dk = f; dk <= f + 1; ++dk) {
+                          const int tap = ((3 + a - 2 * di) * 4 +
+                                           (3 + e - 2 * dj)) * 4 +
+                                          (3 + f - 2 * dk);
+                          float& o = acc[((((r * 2 + q) * 2 + p) * 2 + a) *
+                                          2 + e) * 2 + f];
+                          o = fmaf(v[p + dk], wc[tap], o);
+                        }
+                  }
+                }
+              }
+            }
+          }
+        }
+      }
+      if (more) ws_of(buf ^ 1)[threadIdx.x] = w_next;
+      __syncthreads();                       // the stage is refilled next
+    }
+
+    // the bias, one rounding to T, phases f = 0, 1 of one output row as
+    // a pair
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 2 * wi + r;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = j0 + 2 * wj + q;
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int k = k0 + 2 * lane + p;
+          if (i >= S || j >= S || k >= S) continue;
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float* o =
+                  acc + ((((r * 2 + q) * 2 + p) * 2 + a) * 2 + e) * 2;
+              store_pair(out + (((int64_t)b * O + 2 * i + a) * O + 2 * j + e) *
+                                   O + 2 * k,
+                         o[0] + bv, o[1] + bv);
+            }
+        }
+      }
+    }
+  }
+}
+
+// x as a 5-D tensor (k, j, i, c, b), innermost first, and the box of one
+// stage: a row of fma_row<T>() k from k0 - fma_lead<T>() x 10 j x 6 i x
+// kFCh channels of one item.
+// False where TMA cannot describe it: a row of x is no whole number of
+// 16-byte units, or x is not 16-byte aligned.
+template <typename T>
+bool encode_x_fma(CUtensorMap* map, const void* x, int B, int Cin, int S) {
+  EncodeTiled fn = encode_tiled();
+  const cuuint64_t s = (cuuint64_t)S, e = sizeof(T);
+  if (!fn || (s * e) % 16 != 0 || (uintptr_t)x % 16 != 0) return false;
+  const cuuint64_t dims[5] = {s, s, s, (cuuint64_t)Cin, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {s * e, s * s * e, s * s * s * e,
+                                 (cuuint64_t)Cin * s * s * s * e};
+  const cuuint32_t box[5] = {(cuuint32_t)fma_row<T>(), kFHJ, kFHI, kFCh, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return fn(map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            5, const_cast<void*>(x), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The CUDA-core kernel for any call: TMA staging where x allows it, else
+// staging by plain loads; one block per SM (its shared memory admits no
+// second), each walking its share of the tiles.
+template <typename T>
+int launch_fma(const void* x, const float* w, const float* bias, void* out,
+               int B, int Cin, int S, cudaStream_t st) {
+  CUtensorMap map{};
+  const bool tma = encode_x_fma<T>(&map, x, B, Cin, S);
+  auto kernel = tma ? deconv_final_fma_kernel<T, true>
+                    : deconv_final_fma_kernel<T, false>;
+  const int smem = fma_smem_bytes<T>();
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = (int64_t)B * ((S + kFI - 1) / kFI) *
+                        ((S + kFJ - 1) / kFJ) * ((S + kFK - 1) / kFK);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  kernel<<<grid, kFWarps * 32, smem, st>>>(
+      map, static_cast<const T*>(x), w, bias, static_cast<T*>(out), B, Cin,
+      S);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -494,11 +700,12 @@ int deconv_final(const void* x, const float* w, const float* bias, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || Cin < 1 || S < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(x, w, bias, out, B, Cin, S, st);
+    return launch_fma<float>(x, w, bias, out, B, Cin, S, st);
   if (dtype == 1) {
     const int err = launch_mma(x, w, bias, out, B, Cin, S, st);
     return err >= 0 ? err
-                    : launch<__nv_bfloat16>(x, w, bias, out, B, Cin, S, st);
+                    : launch_fma<__nv_bfloat16>(x, w, bias, out, B, Cin, S,
+                                                st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -21,11 +21,14 @@ plain version in bfloat16 rounds more than once inside the library (the
 sum, the bias, their sum), so the two differ by up to two bfloat16 steps
 of the output.
 
-On the tensor cores the kernel computes the layer as a GEMM per block:
-the 27 neighbour offsets of each input position times the channels,
-against :func:`pack_weight`'s (27, Cin_pad, 8) weight with its structured
-zeros, into the 8 output phases.  :func:`deconv_final_gemm` is the same
-contraction in PyTorch, so that the CPU tests hold the formulation.
+In bfloat16 the kernel computes the layer on the tensor cores as a GEMM
+per block: the 27 neighbour offsets of each input position times the
+channels, against :func:`pack_weight`'s (27, Cin_pad, 8) weight with its
+structured zeros, into the 8 output phases.  :func:`deconv_final_gemm` is
+the same contraction in PyTorch, so that the CPU tests hold the
+formulation.  In float32, and in bfloat16 where that tiling does not
+apply (S > 64, S not a multiple of 8, Cin > 288), the CUDA cores compute
+the 8 taps of each phase directly, as the plain version does.
 
 The gradient (:func:`deconv_final_backward`) is the plain version's,
 computed by ``aten.convolution_backward`` without running the forward

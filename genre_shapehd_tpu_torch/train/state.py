@@ -12,8 +12,14 @@ would take:
   ``step`` = count, ``exp_avg`` = mu, ``exp_avg_sq`` = nu.
 
 A JAX checkpoint pickles the optax objects, which load as stand-ins
-(``core/checkpoint.py``); the port writes
-``{"count": int32, "mu": tree, "nu": tree}`` in their place.
+(``core/checkpoint.py``).  The port writes the state of the optax
+transformation the JAX package builds (``models/base.py::adam``) through
+:class:`~..core.checkpoint.Foreign` tuples that pickle as optax's classes:
+``(ScaleByAdamState(count, mu, nu), EmptyState())`` for ``optax.adam``, and
+``(EmptyState(), (ScaleByAdamState(...), EmptyState()))`` under
+``--wdecay`` (``optax.chain(add_decayed_weights, adam)``).  Checkpoints of
+earlier versions of the port hold ``{"count", "mu", "nu"}`` instead; both
+load.
 """
 
 from __future__ import annotations
@@ -23,18 +29,32 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.checkpoint import Foreign
 from ..core.convert import jax_to_torch, torch_to_jax
+
+
+class ScaleByAdamState(Foreign):
+    """optax's Adam state (count, mu, nu), written by reference."""
+    pickle_as = ("optax._src.transform", "ScaleByAdamState")
+
+
+class EmptyState(Foreign):
+    """optax's state of a stateless transformation, written by
+    reference."""
+    pickle_as = ("optax._src.base", "EmptyState")
 
 
 def adam_moments(opt_state: Any) -> Optional[Tuple[int, Dict, Dict]]:
     """(count, mu, nu) of the Adam state in a checkpoint's optimizer
-    entry -- the port's dict or the JAX package's optax tuple, searched
-    for its ``ScaleByAdamState`` -- or None when it holds none."""
+    entry -- an optax state tuple, searched for its ``ScaleByAdamState``
+    (as loaded, a stand-in holding the fields in ``args``; as written, a
+    :class:`ScaleByAdamState`), or the dict of earlier versions of the
+    port -- or None when it holds none."""
     if isinstance(opt_state, dict) and {"count", "mu", "nu"} <= set(opt_state):
         return (int(np.asarray(opt_state["count"])), opt_state["mu"],
                 opt_state["nu"])
     if type(opt_state).__name__ == "ScaleByAdamState":
-        count, mu, nu = opt_state.args
+        count, mu, nu = getattr(opt_state, "args", opt_state)
         return int(np.asarray(count)), mu, nu
     if isinstance(opt_state, (tuple, list)):
         for item in opt_state:
@@ -45,8 +65,10 @@ def adam_moments(opt_state: Any) -> Optional[Tuple[int, Dict, Dict]]:
 
 
 def adam_state_to_jax(optimizer: torch.optim.Adam,
-                      net: torch.nn.Module) -> Dict[str, Any]:
-    """The port's optimizer entry: Adam's moments as JAX-layout trees."""
+                      net: torch.nn.Module) -> Tuple:
+    """The port's optimizer entry: optax's state of the JAX package's
+    Adam, with the decay stage when the optimizer decays weights, and
+    Adam's moments as JAX-layout trees."""
     mu, nu, count = {}, {}, 0
     for name, p in net.named_parameters():
         st = optimizer.state.get(p)
@@ -55,8 +77,11 @@ def adam_state_to_jax(optimizer: torch.optim.Adam,
             continue
         mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
         count = int(st["step"])
-    return {"count": np.int32(count), "mu": torch_to_jax(mu)[0],
-            "nu": torch_to_jax(nu)[0]}
+    state = (ScaleByAdamState(np.int32(count), torch_to_jax(mu)[0],
+                              torch_to_jax(nu)[0]), EmptyState())
+    if optimizer.param_groups[0]["weight_decay"]:
+        state = (EmptyState(), state)
+    return state
 
 
 def load_adam_state(optimizer: torch.optim.Adam, net: torch.nn.Module,

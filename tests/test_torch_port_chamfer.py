@@ -13,6 +13,7 @@ import torch
 from genre_shapehd_tpu.ops import chamfer as jch
 from genre_shapehd_tpu.ops.pallas import (nndistance_pallas,
                                           nndistance_score_pallas)
+from genre_shapehd_tpu.ops.pallas.chamfer_kernel import _one_sided_min
 from genre_shapehd_tpu_torch.ops import chamfer as tch
 from genre_shapehd_tpu_torch.ops.cuda import chamfer_kernel as ck
 
@@ -80,6 +81,66 @@ def test_blocked_path_matches_jax_blocked_path(block):
     d1, d2 = tch.nndistance(t1, t2, block=block)
     np.testing.assert_array_equal(d1.numpy(), got[0])
     np.testing.assert_array_equal(d2.numpy(), got[1])
+
+
+def _with_ties(s1, s2, seed):
+    """Clouds whose points repeat: every fifth point of x2 is an exact
+    copy of an earlier one, and x1 holds copies of x2's points, so that
+    distances tie exactly (at zero and above)."""
+    x1, x2 = _clouds(s1, s2, seed)
+    rng = np.random.default_rng(seed + 1)
+    m = x2.shape[1]
+    for j in range(1, m, 5):
+        x2[:, j] = x2[:, rng.integers(0, j)]
+    k = min(x1.shape[1], m)
+    x1[:, :k:2] = x2[:, rng.integers(0, m, size=len(range(0, k, 2)))]
+    return x1, x2
+
+
+@pytest.mark.parametrize("s1,s2,ties", [
+    ((2, 37), (2, 45), False), ((1, 1), (1, 300), False),
+    ((2, 300), (2, 1), False), ((1, 1), (1, 1), False),
+    ((2, 130), (2, 211), True), ((1, 1024), (1, 1024), True)])
+def test_nn_min_dist_edge_clouds_match_jax(s1, s2, ties):
+    """The plain version of K4, the arithmetic its card tests hold the
+    kernel to, at the shapes the kernel's lane groups and chunks make
+    edges of (N = 1, M = 1, N and M no multiple of a group of lanes or of
+    a chunk) and on clouds with exact duplicates: distances against the
+    JAX package's ``nndistance_w_idx`` and its Pallas ``_one_sided_min``
+    (interpret mode on the CPU), indices through the distances they
+    give."""
+    x1, x2 = (_with_ties if ties else _clouds)(s1, s2, seed=s1[1] + s2[1])
+    d1, d2, i1, i2 = (t.numpy() for t in ck.nn_min_dist(
+        torch.from_numpy(x1), torch.from_numpy(x2)))
+    r1, r2, _, _ = (np.asarray(t) for t in jch.nndistance_w_idx(
+        jnp.asarray(x1), jnp.asarray(x2)))
+    p1 = np.asarray(_one_sided_min(jnp.asarray(x1), jnp.asarray(x2)))
+    p2 = np.asarray(_one_sided_min(jnp.asarray(x2), jnp.asarray(x1)))
+    assert d1.shape == s1 and d2.shape == s2 and i1.dtype == np.int32
+    for got, ref, pal in ((d1, r1, p1), (d2, r2, p2)):
+        np.testing.assert_allclose(got, ref, **TOL)
+        np.testing.assert_allclose(got, pal, **TOL)
+    np.testing.assert_allclose(_by_index(x1, x2, i1), r1, **TOL)
+    np.testing.assert_allclose(_by_index(x2, x1, i2), r2, **TOL)
+    if ties:
+        # the copies in x1 lie at distance 0 (the plain version's
+        # expansion leaves at most atol there)
+        copies = (min(s1[1], s2[1]) + 1) // 2
+        assert ((d1 <= TOL["atol"]).sum(-1) >= copies).all()
+
+
+@pytest.mark.parametrize("shape,group,blocks", [
+    ((1, 1024, 1024), 32, 128), ((8, 8192, 8192), 4, 1024),
+    ((2, 700, 1200), 32, 300), ((64, 4096, 4096), 1, 1024)])
+def test_k4_plan_fills_the_card(shape, group, blocks):
+    """The lanes per group of 4 queries: the least power of two up to 32
+    that gives 2^17 threads over both directions, so the scoring path's
+    1 x 1024 x 1024 spreads over 128 blocks (PR 2's kernel: 16)."""
+    pl = ck.plan(*shape)
+    assert pl == {"group": group, "blocks": blocks}
+    b, n, m = shape
+    threads = b * (n + m) * group // ck.QUERIES
+    assert threads >= ck.FILL_THREADS or group == 32
 
 
 def test_nndistance_score_matches_jax_and_pallas():

@@ -106,11 +106,16 @@ def test_cuda_tensor_never_falls_back(device):
     ("float32", 2, 12, 16), ("float32", 1, 3, 5), ("bfloat16", 2, 40, 16),
     ("bfloat16", 1, 7, 9), ("float32", 1, 7, 9), ("bfloat16", 1, 3, 5),
     ("bfloat16", 2, 40, 33), ("float32", 2, 40, 33), ("bfloat16", 1, 20, 24),
-    ("bfloat16", 2, 40, 64), ("bfloat16", 1, 5, 72)])
+    ("bfloat16", 2, 40, 64), ("bfloat16", 1, 5, 72), ("float32", 8, 40, 64),
+    ("float32", 1, 1, 1), ("float32", 1, 3, 66), ("float32", 1, 300, 8),
+    ("bfloat16", 1, 300, 16), ("bfloat16", 2, 6, 66)])
 def test_deconv_final_matches_plain(device, dtype, b, cin, s):
     """K3 against its plain version: bf16 on the tensor cores where S is
-    a multiple of 8 up to 64 (16, 24, 64; Cin padded to 16), else (5, 9,
-    33, 72) and in float32 on the CUDA cores."""
+    a multiple of 8 up to 64 and Cin <= 288 (16, 24, 64; Cin padded to
+    16), else (S = 5, 9, 33, 66, 72; Cin = 300) and in float32 (dec6's
+    (8, 40, 64^3) and S = 1 too) on the CUDA cores: staged by TMA where a
+    row of x is whole 16-byte units, by plain loads where it is not (S =
+    1, 5, 9, 33, 66 in float32; 5, 9, 33, 66 in bf16)."""
     cd = getattr(torch, dtype)
     rng = np.random.default_rng(s)
     x = torch.from_numpy(rng.standard_normal((b, cin, s, s, s)).astype(
@@ -139,6 +144,36 @@ def test_deconv_final_matches_plain(device, dtype, b, cin, s):
             x.float(), w.to(cd).float(), bias, stride=2, padding=1)
         e = float((out.float() - exact).abs().max())
         assert e <= 2.0 ** -8 * float(exact.abs().max()), e
+
+
+@pytest.mark.parametrize("dtype,b,cin,s,kernel", [
+    ("float32", 8, 40, 64, "deconv_final_fma_kernel"),
+    ("float32", 1, 7, 9, "deconv_final_fma_kernel"),
+    ("bfloat16", 8, 40, 64, "deconv_final_mma_kernel"),
+    ("bfloat16", 1, 5, 72, "deconv_final_fma_kernel"),
+    ("bfloat16", 1, 7, 9, "deconv_final_fma_kernel"),
+    ("bfloat16", 1, 300, 16, "deconv_final_fma_kernel")])
+def test_deconv_final_launches_one_kernel(device, dtype, b, cin, s, kernel):
+    """One device kernel per K3 call (no cast of x or the weight, no
+    copy), and the one its shape selects: float32 and the bf16 shapes the
+    tensor-core tiling refuses run the CUDA-core kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cd = getattr(torch, dtype)
+    x = torch.zeros((b, cin, s, s, s), dtype=cd, device=device)
+    w = torch.zeros((cin, 1, 4, 4, 4), device=device)
+    bias = torch.zeros(1, device=device)
+    sk.deconv_final(x, w, bias)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sk.deconv_final(x, w, bias)
+        torch.cuda.synchronize()
+    names = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)
+             and not e.key.startswith(("Memcpy", "Memset"))}
+    assert sum(names.values()) == 1 and kernel in next(iter(names)), names
 
 
 def test_deconv_final_layer_autocast_grad_and_layouts(device):
@@ -178,7 +213,9 @@ def test_deconv_final_layer_autocast_grad_and_layouts(device):
 
 
 @pytest.mark.parametrize("b,n,m", [(2, 700, 1200), (1, 513, 511),
-                                   (3, 1, 2500), (1, 1024, 1024)])
+                                   (3, 1, 2500), (1, 1024, 1024),
+                                   (8, 8192, 8192), (2, 2500, 1), (1, 1, 1),
+                                   (4, 37, 45)])
 def test_nn_min_dist_matches_plain(device, b, n, m):
     rng = np.random.default_rng(n)
     x1 = torch.from_numpy(rng.standard_normal((b, n, 3)).astype(
@@ -201,6 +238,53 @@ def test_nn_min_dist_matches_plain(device, b, n, m):
                                atol=1e-6)
     torch.testing.assert_close(((x2 - nn2) ** 2).sum(-1), d2, rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 1024, 1024), (2, 700, 1200),
+                                   (8, 8192, 8192)])
+def test_nn_min_dist_ties_go_to_the_lowest_index(device, b, n, m):
+    """Clouds with exact copies: every fifth point of x2 repeats an
+    earlier one and half of x1 are copies of x2's points.  Copies give
+    equal distances bit for bit, so the kernel's index is the first copy
+    of the point it names, both ways; the backward scatters through those
+    indices (the formula on the same indices on the CPU)."""
+    rng = np.random.default_rng(b * n + m)
+    x1 = rng.standard_normal((b, n, 3)).astype(np.float32)
+    x2 = rng.standard_normal((b, m, 3)).astype(np.float32)
+    for j in range(1, m, 5):
+        x2[:, j] = x2[:, rng.integers(0, j)]
+    x1[:, ::2] = x2[:, rng.integers(0, m, size=len(range(0, n, 2)))]
+    for j in range(3, n, 7):
+        x1[:, j] = x1[:, rng.integers(0, j)]
+    t1 = torch.from_numpy(x1).to(device).requires_grad_()
+    t2 = torch.from_numpy(x2).to(device).requires_grad_()
+    ck.reset_launches()
+    d1, d2, i1, i2 = chamfer.nndistance_w_idx(t1, t2)
+    torch.cuda.synchronize()
+    assert ck.launches == {"nn_min_dist": 1}
+    r1, r2, _, _ = ck.nn_min_dist_plain(t1.detach(), t2.detach())
+    torch.testing.assert_close(d1, r1, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(d2, r2, rtol=1e-4, atol=1e-5)
+    assert int((d1 == 0).sum()) >= b * ((n + 1) // 2)
+    for x, idx in ((x2, i1), (x1, i2)):
+        # first[bi, j]: the lowest index holding the same point as j
+        first = np.empty(x.shape[:2], np.int64)
+        for bi in range(b):
+            _, lowest, inv = np.unique(x[bi], axis=0, return_index=True,
+                                       return_inverse=True)
+            first[bi] = lowest[inv.reshape(-1)]
+        got = idx.long().cpu().numpy()
+        assert (np.take_along_axis(first, got, 1) == got).all()
+    g1 = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+    g2 = torch.from_numpy(rng.standard_normal((b, m)).astype(np.float32))
+    torch.autograd.backward((d1, d2), (g1.to(device), g2.to(device)))
+    c1, c2 = torch.from_numpy(x1), torch.from_numpy(x2)
+    dx1, dx2 = ck._scatter_grad(c1, c2, i1.cpu(), g1)
+    ex2, ex1 = ck._scatter_grad(c2, c1, i2.cpu(), g2)
+    torch.testing.assert_close(t1.grad.cpu(), dx1 + ex1, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(t2.grad.cpu(), dx2 + ex2, rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_nn_min_dist_gradient_and_degenerate_clouds(device):

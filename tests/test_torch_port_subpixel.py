@@ -45,8 +45,11 @@ def _port(x, kernel, bias, dtype=torch.float32):
     return out[:, 0].float().numpy()
 
 
-@pytest.mark.parametrize("b,s,cin", [(2, 4, 3), (1, 6, 5)])
+@pytest.mark.parametrize("b,s,cin", [(2, 4, 3), (1, 6, 5), (1, 7, 4),
+                                     (2, 1, 3), (1, 6, 1), (1, 66, 2)])
 def test_deconv_final_matches_pallas_and_xla_f32(b, s, cin):
+    """float32 at the shapes K3's CUDA-core kernel takes as edges: odd S,
+    S = 1, Cin = 1 and S > 64 (more than one tile along k)."""
     x, kernel, bias = _inputs(b, s, cin, seed=s)
     wcat = flax_kernel_to_wcat(kernel)
     got = _port(x, kernel, bias)

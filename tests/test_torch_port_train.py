@@ -397,10 +397,11 @@ def test_resume_from_a_jax_checkpoint_takes_the_same_step(tmp_path):
     assert float(st["step"]) == 1.0
 
     # the state written back equals what was read
-    back = tstate.adam_state_to_jax(tm.optimizer, tm.net)
+    back_count, back_mu, back_nu = tstate.adam_moments(
+        tstate.adam_state_to_jax(tm.optimizer, tm.net))
     count, mu, nu = tstate.adam_moments(load_checkpoint(path)["optimizers"])
-    assert int(back["count"]) == count == 1
-    for a, b in zip(jax.tree.leaves(back["mu"]) + jax.tree.leaves(back["nu"]),
+    assert back_count == count == 1
+    for a, b in zip(jax.tree.leaves(back_mu) + jax.tree.leaves(back_nu),
                     jax.tree.leaves(mu) + jax.tree.leaves(nu)):
         np.testing.assert_array_equal(a, b)
 
@@ -416,6 +417,102 @@ def test_resume_from_a_jax_checkpoint_takes_the_same_step(tmp_path):
         np.testing.assert_allclose((sd[k] - before[k]).numpy(),
                                    (v - before[k]).numpy(), rtol=0,
                                    atol=1e-3 * LR, err_msg=k)
+
+
+def _seeded_grads(net, seed):
+    """A gradient for every parameter, made with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return {n: torch.from_numpy(rng.standard_normal(tuple(p.shape))
+                                .astype(np.float32))
+            for n, p in net.named_parameters()}
+
+
+def _port_step(model, grads):
+    for n, p in model.net.named_parameters():
+        p.grad = grads[n].clone()
+    model.optimizer.step()
+
+
+@pytest.mark.parametrize("wdecay", [0.0, 0.05])
+def test_jax_trainer_resumes_a_port_checkpoint(tmp_path, wdecay):
+    """A port checkpoint after two steps, Adam state included, loaded by
+    the JAX package's ``Trainer``: its optimizer state has the structure
+    of the model's optax transformation (``optax.adam``, chained after
+    ``add_decayed_weights`` under ``--wdecay``) with optax's own classes,
+    and with the port's next gradient the JAX optimizer takes the port's
+    next step."""
+    from genre_shapehd_tpu.train.loop import Trainer as JaxTrainer
+    from genre_shapehd_tpu_torch.core.convert import torch_to_jax
+    from genre_shapehd_tpu_torch.train.loop import Trainer
+    from optax._src.base import EmptyState
+    from optax._src.transform import ScaleByAdamState
+    jm, tm = _models(False, **TINY, wdecay=wdecay)
+    tm.init_state(0)
+    for seed in (1, 2):
+        _port_step(tm, _seeded_grads(tm.net, seed))
+    path = str(tmp_path / "checkpoint.pt")
+    Trainer(tm, tm.opt).save(path, 2, 0.7)
+
+    trainer = JaxTrainer(jm, jm.opt)
+    trainer.initialize(jax.random.PRNGKey(0))
+    trainer.load(path)
+    assert trainer.start_epoch == 2
+    opt_state = trainer.state.opt_state["net"]
+    params = trainer.state.params["net"]
+    assert jax.tree.structure(opt_state) == jax.tree.structure(
+        jm.tx.init(params))
+    adam = opt_state[1][0] if wdecay else opt_state[0]
+    assert type(adam) is ScaleByAdamState and int(adam.count) == 2
+    assert type(opt_state[0 if wdecay else 1]) is EmptyState
+
+    grads = _seeded_grads(tm.net, 3)
+    before = {k: v.clone() for k, v in tm.net.state_dict().items()}
+    _port_step(tm, grads)
+    updates, _ = jm.tx.update(torch_to_jax(grads)[0], opt_state, params)
+    after = jax_to_torch(_to_np(optax.apply_updates(params, updates)), {})
+    sd = tm.net.state_dict()
+    for k, v in after.items():
+        # Adam's arithmetic in float32 in both: a few ulp of lr; each adds
+        # its update to the parameter with one rounding, which may fall on
+        # either side when the two updates differ in their last bits: one
+        # ulp of the parameter
+        p0 = before[k].numpy()
+        d = np.abs((sd[k] - before[k]).numpy() - (v - before[k]).numpy())
+        assert (d <= 1e-3 * LR + np.spacing(np.abs(p0))).all(), (k, d.max())
+
+
+def test_port_resumes_its_earlier_dict_shaped_adam_entries(tmp_path):
+    """Checkpoints of earlier versions of the port hold the optimizer
+    entry as ``{"count", "mu", "nu"}``: the port still loads them, as it
+    loads the optax-shaped entry it writes now, to the same state."""
+    from genre_shapehd_tpu_torch.core.checkpoint import save_checkpoint as \
+        port_save
+    from genre_shapehd_tpu_torch.train.loop import Trainer
+    _, tm = _models(False, **TINY)
+    tm.init_state(0)
+    _port_step(tm, _seeded_grads(tm.net, 4))
+    new = tstate.adam_state_to_jax(tm.optimizer, tm.net)
+    count, mu, nu = tstate.adam_moments(new)
+    old = {"count": np.int32(count), "mu": mu, "nu": nu}
+    payload = tstate.state_to_reference_payload(tm, 1, 0.5)
+    assert type(payload["optimizers"][0][0]).__name__ == "ScaleByAdamState"
+    states = []
+    for name, entry in (("old", old), ("new", new)):
+        path = str(tmp_path / f"{name}.pt")
+        port_save(path, dict(payload, optimizers=[entry]))
+        _, fresh = _models(False, **TINY)
+        fresh.init_state(5)
+        Trainer(fresh, fresh.opt).load(path)
+        states.append([fresh.optimizer.state[p]
+                       for p in fresh.net.parameters()])
+    ref = [tm.optimizer.state[p] for p in tm.net.parameters()]
+    for got in states:
+        for a, b in zip(got, ref):
+            assert float(a["step"]) == float(b["step"]) == 1.0
+            torch.testing.assert_close(a["exp_avg"], b["exp_avg"], rtol=0,
+                                       atol=0)
+            torch.testing.assert_close(a["exp_avg_sq"], b["exp_avg_sq"],
+                                       rtol=0, atol=0)
 
 
 def test_inpaint_path_loads_stage_two_into_depth_and_inpaint(tmp_path):
@@ -546,7 +643,7 @@ def test_cli_train_on_the_cpu(tmp_path):
         payload = load_checkpoint(ckpt)
         # 2 steps, resumed, 2 more
         assert payload["epoch"] == 2
-        assert int(payload["optimizers"][0]["count"]) == 4
+        assert tstate.adam_moments(payload["optimizers"][0])[0] == 4
 
         # the clobber guard: an existing logdir of a positive expr_id stays
         from genre_shapehd_tpu_torch.cli import train
