@@ -155,6 +155,22 @@ def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
+def k3_bf16_within(d_max, d_mean, e, e_plain, scale, exact_max):
+    """The bounds on a bf16 K3 result: within 1e-2 of ``scale`` (the
+    plain version's largest magnitude) at most and 1e-3 on average of the
+    plain version (``d_max``, ``d_mean``), and within half a bf16 step at
+    the largest magnitude, u = 2^-8 of ``exact_max``, of the float32
+    result (``e``).  The 1e-2 bound (~2.5 u) presumes the plain version
+    within 1.5 u of the float32 result; it is waived only where the plain
+    version (``e_plain`` from the float32 result) lies further.  Returns
+    (ok, waived)."""
+    u = 2.0 ** -8 * exact_max
+    waived = d_max > 1e-2 * scale and e_plain > 1.5 * u
+    ok = (d_max <= 1e-2 * scale or waived) and d_mean <= 1e-3 * scale \
+        and e <= u
+    return ok, waived
+
+
 def kernels_launched(*calls) -> dict:
     """Device kernels by name that ``calls`` launch, in one torch.profiler
     session.  It has to be the process's first: after one, a session's
@@ -499,6 +515,9 @@ def phase_nn_min_dist(device, flush):
         got = idx[0].long()
         check(bool((first[inv[got]] == got).all()),
               "K4: a tie did not go to the lowest index")
+    # the scoring path's clouds fill 128 blocks (PR 2's kernel: 16)
+    check(ck.plan(1, 1024, 1024) == {"group": 32, "blocks": 128},
+          f"K4 plan at (1, 1024, 1024): {ck.plan(1, 1024, 1024)}")
     log(f"[kernels] K4 nn_min_dist f32 at {list(clouds)}: max/mean abs err "
         f"vs plain {worst[0]:.3g}/{worst[1]:.3g}; on (1, 1024, 1024) clouds "
         f"with copies every tie went to the lowest index; plans "
@@ -1132,6 +1151,13 @@ def phase_float32(device, flush):
     return out
 
 
+def _sig(v):
+    """``v``, or each value of the list ``v``, to 3 significant digits."""
+    if isinstance(v, list):
+        return [_sig(u) for u in v]
+    return float(f"{v:.3g}")
+
+
 def phase_edge_shapes(device):
     """K1, K2, K3 and K5 off the main path's shapes against their plain
     versions, at the bounds above, with a synchronize after each call so
@@ -1139,10 +1165,10 @@ def phase_edge_shapes(device):
     vector width: the scalar path) and batch 1, from float32 and bfloat16
     volumes, in both compute dtypes; K3 at (B, Cin, S) = (1, 7, 9),
     (2, 40, 33), (1, 3, 5), (1, 3, 66), (1, 5, 72), (1, 300, 16) in
-    bfloat16 and float32, and (1, 1, 1) in float32 (the shapes the
-    tensor-core tiling refuses: S not a multiple of 8, S > 64, Cin > 288;
-    float32 and those run the CUDA-core kernel, staged by TMA or by plain
-    loads); K2 and K5 at V = 34 and 33, M = 50, R = 32 and 30, z = 98,
+    bfloat16 and float32, and (1, 1, 1) in float32, at two seeds (the
+    shapes the tensor-core tiling refuses: S not a multiple of 8, S > 64,
+    Cin > 288; float32 and those run the CUDA-core kernel, staged by TMA
+    or by plain loads; bf16 by :func:`k3_bf16_within`); K2 and K5 at V = 34 and 33, M = 50, R = 32 and 30, z = 98,
     batch 1 and 3, in the plan's groups of 4 slabs; the wrapper's
     ValueError for a slab larger than shared memory."""
     import torch
@@ -1163,47 +1189,56 @@ def phase_edge_shapes(device):
                                                    and err[1] < 1e-3)
             check(ok, f"K1 at V=34, {vdt} volume, {cd}: {err}")
             worst[f"K1 V=34 {str(vdt)[6:]} -> {str(cd)[6:]}"] = err[0]
-    g = torch.Generator(device=device).manual_seed(12)
     # (1, 1, 1) in float32 only: its 8 outputs make a mean bound of a
-    # bf16 rounding meaningless
-    for b, cin, s, dts in ((1, 7, 9, (bf, f32)), (2, 40, 33, (bf, f32)),
-                           (1, 3, 5, (bf, f32)), (1, 1, 1, (f32,)),
-                           (1, 3, 66, (bf, f32)), (1, 5, 72, (bf, f32)),
-                           (1, 300, 16, (bf, f32))):
-        for dt in dts:
-            x = torch.randn((b, cin, s, s, s), generator=g,
-                            device=device).to(dt)
-            w = torch.randn((cin, 1, 4, 4, 4), generator=g,
-                            device=device) * 0.2
-            bias = torch.full((1,), 0.3, device=device)
-            out = sk.deconv_final(x, w, bias)
-            torch.cuda.synchronize()
-            check(out.shape == (b, 1, 2 * s, 2 * s, 2 * s)
-                  and out.dtype == dt, f"K3 output {tuple(out.shape)}")
-            ref = sk.deconv_final_plain(x, w, bias).float()
-            scale = float(ref.abs().max())
-            d = (out.float() - ref).abs()
-            if dt == f32:
-                check(float(d.max()) <= 1e-5 * scale,
-                      f"f32 K3 at {(b, cin, s)}: {float(d.max())}")
-            else:
-                exact = F.conv_transpose3d(x.float(), w.to(bf).float(), bias,
-                                           stride=2, padding=1)
+    # bf16 rounding meaningless; two seeds
+    for seed in (12, 13):
+        g = torch.Generator(device=device).manual_seed(seed)
+        for b, cin, s, dts in ((1, 7, 9, (bf, f32)), (2, 40, 33, (bf, f32)),
+                               (1, 3, 5, (bf, f32)), (1, 1, 1, (f32,)),
+                               (1, 3, 66, (bf, f32)), (1, 5, 72, (bf, f32)),
+                               (1, 300, 16, (bf, f32))):
+            for dt in dts:
+                x = torch.randn((b, cin, s, s, s), generator=g,
+                                device=device).to(dt)
+                w = torch.randn((cin, 1, 4, 4, 4), generator=g,
+                                device=device) * 0.2
+                bias = torch.full((1,), 0.3, device=device)
+                out = sk.deconv_final(x, w, bias)
+                torch.cuda.synchronize()
+                check(out.shape == (b, 1, 2 * s, 2 * s, 2 * s)
+                      and out.dtype == dt, f"K3 output {tuple(out.shape)}")
+                ref = sk.deconv_final_plain(x, w, bias).float()
+                scale = float(ref.abs().max())
+                d = (out.float() - ref).abs()
+                key = f"K3 {(b, cin, s)} {str(dt)[6:]} seed {seed}"
+                if dt == f32:
+                    check(float(d.max()) <= 1e-5 * scale,
+                          f"f32 K3 at {(b, cin, s)}: {float(d.max())}")
+                    worst[key] = float(d.max()) / scale
+                    continue
+                exact = F.conv_transpose3d(x.float(), w.to(bf).float(),
+                                           bias, stride=2, padding=1)
                 e = float((out.float() - exact).abs().max())
                 e_plain = float((ref - exact).abs().max())
-                # the kernel rounds the float32 sum once: within half a
-                # bf16 step of the float32 result (2^-8 of the scale).  The
-                # plain version's 1e-2 of the scale presumes cuDNN's bf16
-                # result within 1.5 steps of the float32 result; where it
-                # lies further, the two distances bound the gap
-                check(float(d.max()) <= max(1e-2 * scale, e + e_plain)
-                      and float(d.mean()) <= 1e-3 * scale
-                      and e <= 2.0 ** -8 * float(exact.abs().max()),
-                      f"K3 at {(b, cin, s)}: {float(d.max())} "
-                      f"{float(d.mean())} vs plain, {e} vs float32, the "
-                      f"plain version {e_plain} vs float32, scale {scale}")
-                worst[f"K3 {(b, cin, s)} plain vs float32"] = e_plain / scale
-            worst[f"K3 {(b, cin, s)} {str(dt)[6:]}"] = float(d.max()) / scale
+                u = 2.0 ** -8 * float(exact.abs().max())
+                ok, waived = k3_bf16_within(float(d.max()), float(d.mean()),
+                                            e, e_plain, scale,
+                                            float(exact.abs().max()))
+                check(ok, f"K3 at {(b, cin, s)}, seed {seed}: "
+                          f"{float(d.max())} {float(d.mean())} vs plain, {e} "
+                          f"vs float32, the plain version {e_plain} vs "
+                          f"float32, scale {scale}")
+                if waived:
+                    log(f"[kernels] K3 bf16 at {(b, cin, s)}, seed {seed}: "
+                        f"the plain version lies {e_plain / u:.2f} u "
+                        f"(2^-8 of the largest magnitude) from the float32 "
+                        f"result, beyond the 1.5 u its 1e-2 bound presumes; "
+                        f"the kernel, {e / u:.2f} u from it, is held to 1 u "
+                        f"alone")
+                worst[key] = float(d.max()) / scale
+                # kernel and plain version from the float32 result, in u
+                worst[f"{key}: kernel, plain vs float32 (u)"] = [
+                    e / u, e_plain / u]
     # K2 and K5: S = 98 (no multiple of 32 or 4), a bf16 slab of 3,400
     # bytes (no multiple of 16), V = 33 bf16 (rows not 4-byte aligned:
     # plain-load staging), batch 1 and 3, the plan's 4 slabs a group:
@@ -1239,7 +1274,7 @@ def phase_edge_shapes(device):
         raise AssertionError(f"{fn.__name__} took a 395 KB slab")
     check(set(rk.launches.values()) == {0}, f"launched: {rk.launches}")
     log(f"[kernels] edge shapes, max abs err (K3: of the scale) vs plain: "
-        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}; "
+        f"{json.dumps({k: _sig(v) for k, v in worst.items()})}; "
         f"a (384, 256) float32 slab raises ValueError")
 
 

@@ -22,8 +22,8 @@
 // bytes a point).  A pair costs 3 subtractions, a multiplication and 2
 // multiply-adds; the design keeps what else a pair costs small and fills
 // the card at the scoring path's 1 x 1024 x 1024:
-//   - a group of G lanes (1 to 32, a power of two; the wrapper's plan
-//     picks it from B * (N + M) so that the grid fills the card) serves
+//   - a group of G lanes (1 to 32, a power of two; `plan` picks it from
+//     B * (N + M) so that the grid fills the card) serves
 //     kQ = 4 query points; each lane scans every G-th point of the other
 //     cloud, so one staged point serves 4 queries and a 1024-point cloud
 //     still spreads over 128 blocks;
@@ -51,6 +51,8 @@ constexpr int kThreads = 128;  // threads per block
 constexpr int kQ = 4;          // query points per group
 constexpr int kChunk = 16;     // points a lane scans between index checks
 constexpr int kTile = 1024;    // points of the other cloud per stage
+constexpr int64_t kFill = 1 << 17;  // threads that fill the card: ~1000 on
+                                    // each of an H100's 132 SMs
 
 // One formula for the hot loop and the rescan: the rescan finds the
 // minimum bit for bit.
@@ -167,6 +169,19 @@ nn_min_dist_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// Lanes per group of kQ query points for clouds (B, N, 3), (B, M, 3): the
+// least power of two up to 32 that gives kFill threads over both
+// directions; and the blocks of the launch.
+void plan(int B, int N, int M, int* group, int* blocks) {
+  const int64_t queries = (int64_t)B * ((int64_t)N + M);
+  int G = 1;
+  while (G < 32 && queries * G < kFill * kQ) G *= 2;
+  const int most = N > M ? N : M;
+  const int per_block = kThreads / G * kQ;
+  *group = G;
+  *blocks = 2 * B * ((most + per_block - 1) / per_block);
+}
+
 template <int G>
 int launch(const float* x, const float* y, float* d1, int* i1, float* d2,
            int* i2, int B, int N, int M, cudaStream_t st) {
@@ -182,21 +197,27 @@ int launch(const float* x, const float* y, float* d1, int* i1, float* d2,
 
 extern "C" {
 
+// The lanes per group and the blocks that nn_min_dist launches for these
+// clouds.
+void nn_min_dist_plan(int B, int N, int M, int* group, int* blocks) {
+  plan(B, N, M, group, blocks);
+}
+
 // x (B, N, 3), y (B, M, 3) float32 contiguous -> d1, i1 (B, N), d2, i2
-// (B, M); `group` lanes per 4 query points, a power of two up to 32.
+// (B, M).
 int nn_min_dist(const float* x, const float* y, float* d1, int* i1,
-                float* d2, int* i2, int B, int N, int M, int group,
-                void* stream) {
+                float* d2, int* i2, int B, int N, int M, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > 65535 || N < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  int group = 0, blocks = 0;
+  plan(B, N, M, &group, &blocks);
   switch (group) {
     case 1: return launch<1>(x, y, d1, i1, d2, i2, B, N, M, st);
     case 2: return launch<2>(x, y, d1, i1, d2, i2, B, N, M, st);
     case 4: return launch<4>(x, y, d1, i1, d2, i2, B, N, M, st);
     case 8: return launch<8>(x, y, d1, i1, d2, i2, B, N, M, st);
     case 16: return launch<16>(x, y, d1, i1, d2, i2, B, N, M, st);
-    case 32: return launch<32>(x, y, d1, i1, d2, i2, B, N, M, st);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch<32>(x, y, d1, i1, d2, i2, B, N, M, st);
   }
 }
 

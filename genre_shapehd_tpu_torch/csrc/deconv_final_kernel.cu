@@ -73,7 +73,8 @@
 //     the tile: TMA wants a box's innermost start 16-byte aligned),
 //     zero-filled outside the volume and past Cin; where TMA cannot
 //     describe x (rows not whole 16-byte units: S not a multiple of 4,
-//     of 8 in bf16) the threads stage it with plain loads;
+//     of 8 in bf16) the threads stage it with plain loads, which nothing
+//     overlaps (7x the TMA variant's time at dec6's float32 shape);
 //   - persistent blocks, one per SM, walk the tiles; two stages, so the
 //     next chunk's copy runs during this chunk's FMAs.  Each stage holds
 //     its chunk's weights too (rounded to x's type), loaded one per

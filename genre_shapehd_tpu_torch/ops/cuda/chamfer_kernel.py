@@ -14,9 +14,9 @@ block-wise min / argmin, the arithmetic of the JAX package's
 launches the kernel or raises.
 
 The kernel splits the other cloud over a group of lanes per 4 query
-points; :func:`plan` sizes the group from the clouds so that the grid
+points; its entry point sizes the group from the clouds so that the grid
 fills the card (32 lanes at the scoring path's 1 x 1024 x 1024, 4 at 8 x
-8192 x 8192).
+8192 x 8192), and :func:`plan` reports that choice.
 
 The kernel returns the indices, so the gradient (the JAX package's
 ``_bwd``: ``2 (x - x_nn) g`` gathered and scattered) needs no second pass.
@@ -43,24 +43,14 @@ launches: Dict[str, int] = {"nn_min_dist": 0}
 
 _lib = None
 
-#: the kernel's block and query points per group of lanes
-#: (csrc/chamfer_kernel.cu: kThreads, kQ)
-THREADS, QUERIES = 128, 4
-#: threads that fill the card: ~1000 on each of an H100's 132 SMs
-FILL_THREADS = 2 ** 17
-
-
 def plan(b: int, n: int, m: int) -> Dict[str, int]:
-    """Lanes per group of 4 query points and the blocks of one launch for
-    clouds (b, n, 3), (b, m, 3): the least power of two up to 32 that
-    gives ``FILL_THREADS`` threads over both directions."""
-    queries = b * (n + m)
-    group = 1
-    while group < 32 and queries * group < FILL_THREADS * QUERIES:
-        group *= 2
-    per_block = THREADS // group * QUERIES
-    return {"group": group,
-            "blocks": 2 * b * -(-max(n, m) // per_block)}
+    """The lanes per group of 4 query points and the blocks that the
+    kernel's launch uses for clouds (b, n, 3), (b, m, 3), as its entry
+    point chooses them (the card's build only)."""
+    group, blocks = ctypes.c_int(), ctypes.c_int()
+    _library().nn_min_dist_plan(b, n, m, ctypes.byref(group),
+                                ctypes.byref(blocks))
+    return {"group": group.value, "blocks": blocks.value}
 
 
 def reset_launches() -> None:
@@ -123,8 +113,11 @@ def _library():
     if _lib is None:
         lib = build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nn_min_dist.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.nn_min_dist.argtypes = [p, p, p, p, p, p, i, i, i, p]
         lib.nn_min_dist.restype = i
+        lib.nn_min_dist_plan.argtypes = [i, i, i, ctypes.POINTER(i),
+                                         ctypes.POINTER(i)]
+        lib.nn_min_dist_plan.restype = None
         _lib = lib
     return _lib
 
@@ -141,8 +134,7 @@ def _launch(x1: torch.Tensor, x2: torch.Tensor):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.nn_min_dist(ptr(x1), ptr(x2), ptr(d1), ptr(i1), ptr(d2),
-                              ptr(i2), b, n, m, plan(b, n, m)["group"],
-                              ctypes.c_void_p(stream))
+                              ptr(i2), b, n, m, ctypes.c_void_p(stream))
         launches["nn_min_dist"] += 1
     if err != 0:
         raise RuntimeError(f"nn_min_dist: CUDA error {err} at launch")

@@ -129,20 +129,6 @@ def test_nn_min_dist_edge_clouds_match_jax(s1, s2, ties):
         assert ((d1 <= TOL["atol"]).sum(-1) >= copies).all()
 
 
-@pytest.mark.parametrize("shape,group,blocks", [
-    ((1, 1024, 1024), 32, 128), ((8, 8192, 8192), 4, 1024),
-    ((2, 700, 1200), 32, 300), ((64, 4096, 4096), 1, 1024)])
-def test_k4_plan_fills_the_card(shape, group, blocks):
-    """The lanes per group of 4 queries: the least power of two up to 32
-    that gives 2^17 threads over both directions, so the scoring path's
-    1 x 1024 x 1024 spreads over 128 blocks (PR 2's kernel: 16)."""
-    pl = ck.plan(*shape)
-    assert pl == {"group": group, "blocks": blocks}
-    b, n, m = shape
-    threads = b * (n + m) * group // ck.QUERIES
-    assert threads >= ck.FILL_THREADS or group == 32
-
-
 def test_nndistance_score_matches_jax_and_pallas():
     x1, x2 = _clouds((2, 300), (2, 450), seed=5)
     got = tch.nndistance_score(torch.from_numpy(x1), torch.from_numpy(x2))

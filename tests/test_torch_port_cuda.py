@@ -287,6 +287,20 @@ def test_nn_min_dist_ties_go_to_the_lowest_index(device, b, n, m):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("shape,group,blocks", [
+    ((1, 1024, 1024), 32, 128), ((8, 8192, 8192), 4, 1024),
+    ((2, 700, 1200), 32, 300), ((64, 4096, 4096), 1, 1024)])
+def test_k4_plan_fills_the_card(device, shape, group, blocks):
+    """The lanes per group of 4 queries, as the kernel's entry point
+    chooses them: the least power of two up to 32 that gives 2^17 threads
+    over both directions, so the scoring path's 1 x 1024 x 1024 spreads
+    over 128 blocks (PR 2's kernel: 16)."""
+    assert ck.plan(*shape) == {"group": group, "blocks": blocks}
+    b, n, m = shape
+    threads = b * (n + m) * group // 4
+    assert threads >= 2 ** 17 or group == 32
+
+
 def test_nn_min_dist_gradient_and_degenerate_clouds(device):
     rng = np.random.default_rng(2)
     x1 = torch.from_numpy(rng.standard_normal((1, 40, 3)).astype(np.float32))
