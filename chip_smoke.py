@@ -57,7 +57,18 @@ raising on failure:
     finite losses, the refine net moved, net1 and net2 only when joint,
     the launch counts per step, a checkpoint that ``cli.test`` reads, the
     step time and peak memory, and a torch.profiler pass over one step of
-    each kind.
+    each kind;
+ 7. GenRe's staged training on procedural scenes (48 generated up front
+    in 8 processes), ``cli.train`` at 256² -> 128³, bfloat16, batch 4,
+    8 steps a stage: MarrNet-1 ``--pred_depth_minmax``, then
+    ``depth_pred_with_sph_inpaint --net1_path`` <stage 1>, then
+    ``genre_full_model --inpaint_path`` <stage 2> ``--surface_weight
+    10``: finite losses, the launches of each stage (K1, K2 in stages 2
+    and 3, K3 in stage 3), which nets moved (stage 1 all of MarrNet-1,
+    stage 2 net2 with net1 bit for bit stage 1's checkpoint, statistics
+    included, stage 3 the refine net only), step time and peak memory;
+    then ``tools/qualrun_torch.py``'s ``eval_quality`` of stage 3's
+    checkpoint on 16 held-out scenes (IoU, Chamfer; K4 once an item).
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Scratch files go to build/chip_smoke/ under the repository.
@@ -1518,6 +1529,196 @@ def phase_train(device, work):
     return runs, main_launches
 
 
+def _net_state(path):
+    """A checkpoint's net as {state_dict key: tensor}."""
+    from genre_shapehd_tpu_torch.core.checkpoint import load_checkpoint
+    from genre_shapehd_tpu_torch.core.convert import jax_to_torch
+    net = load_checkpoint(path)["nets"][0]
+    return {k: v for k, v in jax_to_torch(net["params"],
+                                          net["batch_stats"]).items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def _max_change(after, before, prefix):
+    """The largest weight change under ``prefix`` (statistics excluded)."""
+    return max(float((after[k] - v).abs().max()) for k, v in before.items()
+               if k.startswith(prefix) and "running_" not in k)
+
+
+def phase_staged(device, work):
+    """GenRe's staged training on procedural scenes through ``cli.train``
+    at full width, bfloat16, batch 4: MarrNet-1 --pred_depth_minmax, then
+    depth_pred_with_sph_inpaint --net1_path <stage 1>, then
+    genre_full_model --inpaint_path <stage 2> --surface_weight 10, each
+    for ``TRAIN["steps"]`` steps and one eval batch; then
+    ``tools/qualrun_torch.py``'s ``eval_quality`` of stage 3's checkpoint
+    on 16 held-out scenes.  Returns each stage's step time, memory and
+    launches, and the score's metrics and launches."""
+    import torch
+    from genre_shapehd_tpu_torch.cli import train as cli_train
+    from genre_shapehd_tpu_torch.core.registry import get_dataset, get_model
+    from genre_shapehd_tpu_torch.data import procedural
+    from genre_shapehd_tpu_torch.data.loader import DataLoader
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    from genre_shapehd_tpu_torch.ops.cuda import chamfer_kernel as ck
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    from genre_shapehd_tpu_torch.train.loop import Trainer
+    from tools.qualrun_torch import eval_quality
+    b, steps = TRAIN["batch"], TRAIN["steps"]
+    n_train = b * steps                  # one pass: each scene once
+    # scenes live in this process's memory; generated up front
+    procedural.Dataset.disk_cache_dir = ""
+    t0 = time.perf_counter()
+    opt = default_opt(device="cpu", procedural_length=n_train)
+    made = sum(procedural.Dataset(opt, mode).warm(8)
+               for mode in ("train", "vali"))
+    log(f"[staged] {made} procedural scenes (256^2, 128^3, sph 128) in "
+        f"{time.perf_counter() - t0:.1f} s, 8 processes")
+    check(made == n_train + 16, f"generated {made} scenes")
+
+    logdir = os.path.join(work, "staged")
+    base = ["--dataset", "procedural", "--procedural_length", str(n_train),
+            "--batch_size", str(b), "--dtype", "bfloat16", "--epoch", "1",
+            "--epoch_batches", str(steps), "--eval_batches", "1",
+            "--workers", "4", "--logdir", logdir, "--log_time",
+            "--log_batch", "--manual_seed", "0", "--save_net", "0",
+            "--device", "cuda"]
+    run = lambda net, lr: os.path.join(                       # noqa: E731
+        logdir, f"{net}_procedural_{lr}", "0")
+    d1, d2, d3 = (run("marrnet1", 0.001),
+                  run("depth_pred_with_sph_inpaint", 0.0001),
+                  run("genre_full_model", 0.0001))
+    stages = (
+        ("marrnet1", ["--net", "marrnet1", "--pred_depth_minmax", "--lr",
+                      "1e-3"], d1, "depth_minmax"),
+        ("depth_pred_with_sph_inpaint",
+         ["--net", "depth_pred_with_sph_inpaint", "--pred_depth_minmax",
+          "--net1_path", os.path.join(d1, "checkpoint.pt"), "--lr", "1e-4"],
+         d2, "spherical"),
+        ("genre_full_model",
+         ["--net", "genre_full_model", "--pred_depth_minmax",
+          "--inpaint_path", os.path.join(d2, "checkpoint.pt"),
+          "--surface_weight", "10", "--lr", "1e-4"], d3, "voxel_loss"))
+    # per step and for the eval batch: stage 2 renders (K1, K2), stage 3
+    # also runs dec6 (K3); no stage runs the renderer's backward (K5)
+    want = {"marrnet1": (0, 0, 0),
+            "depth_pred_with_sph_inpaint": (steps + 1, steps + 1, 0),
+            "genre_full_model": (steps + 1, steps + 1, steps + 1)}
+    runs, states = {}, {}
+    for net, extra, d, metric in stages:
+        rk.reset_launches()
+        sk.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        rc = cli_train.main(extra + base)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {**rk.launches, **sk.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(rc == 0, f"cli.train {net} returned {rc}")
+        k1, k2, k3 = want[net]
+        check(launches == {"render_stage1": k1, "render_stage2_scan": k2,
+                           "render_stage2_samples": 0, "deconv_final": k3},
+              f"{net}: launches {launches}")
+        rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
+        check(len(rows) == steps, f"{net}: {len(rows)} logged steps")
+        terms = [k for k in rows[0] if k not in (
+            "epoch", "batch", "size", "batch_time", "data_time")]
+        check(metric in terms and all(np.isfinite(float(row[k]))
+                                      for row in rows for k in terms),
+              f"{net}: loss terms {terms} not all finite")
+        times = [float(row["batch_time"]) for row in rows]
+        data_ms = statistics.median(float(row["data_time"])
+                                    for row in rows[2:]) * 1e3
+        states[net] = _net_state(os.path.join(d, "checkpoint.pt"))
+        runs[net] = dict(step_ms=statistics.median(times[2:]) * 1e3,
+                         data_ms=data_ms, peak_gib=peak, held_gib=held,
+                         seconds=seconds, launches=launches,
+                         loss=[round(float(row["loss"]), 4) for row in rows])
+        log(f"[staged] cli.train {net}: {steps} steps of batch {b}, bf16; "
+            f"loss {runs[net]['loss']}; step {runs[net]['step_ms']:.1f} ms "
+            f"(median of steps 3..{steps}; first two "
+            f"{times[0] * 1e3:.0f}, {times[1] * 1e3:.0f} ms; a batch's "
+            f"loading on the prefetch thread {data_ms:.1f} ms); peak memory "
+            f"{peak:.2f} GiB ({held:.2f} GiB held before the run); "
+            f"{seconds:.1f} s wall with set-up; launches {launches}")
+
+    # which nets moved, against the seeded starts cli.train made (built
+    # on the CPU); stage 2's net1 is stage 1's checkpoint bit for bit,
+    # BatchNorm statistics included, as loaded and after its steps
+    def start(net, **kw):
+        model = get_model(net)(default_opt(device="cpu", **kw))
+        model.init_state(0)
+        return {k: v for k, v in model.net.state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+    s1, s2, s3 = (states[k] for k in ("marrnet1",
+                                      "depth_pred_with_sph_inpaint",
+                                      "genre_full_model"))
+    init1 = start("marrnet1", pred_depth_minmax=True)
+    moved1 = {p: _max_change(s1, init1, p) for p in (
+        "ResNet18Features_0.", "decoder_normal.", "decoder_depth.",
+        "decoder_silhou.", "MinmaxHead_0.")}
+    check(all(v > 0 for v in moved1.values()), f"stage 1 moved {moved1}")
+    loaded = start("depth_pred_with_sph_inpaint",
+                   net1_path=os.path.join(d1, "checkpoint.pt"))
+    for k, v in s1.items():
+        check(torch.equal(loaded["net1." + k], v)
+              and torch.equal(s2["net1." + k], v),
+              f"stage 2's net1 differs from stage 1's checkpoint at {k}")
+    moved2 = _max_change(s2, start("depth_pred_with_sph_inpaint"), "net2.")
+    check(moved2 > 0, "stage 2 did not move net2")
+    init3 = start("genre_full_model")
+    for k, v in s2.items():
+        # stage 3 runs net2 in train mode (its statistics move), net1 in
+        # eval mode, and trains the refine net only
+        if "running_" not in k or k.startswith("net1."):
+            check(torch.equal(s3["depth_and_inpaint." + k], v),
+                  f"stage 3 changed depth_and_inpaint.{k}")
+    moved3 = _max_change(s3, init3, "refine_net.")
+    check(moved3 > 0, "stage 3 did not move the refine net")
+    log(f"[staged] largest weight change: stage 1 {json.dumps(moved1)}; "
+        f"stage 2 net2 {moved2:.3g} (net1 equal to stage 1's checkpoint, "
+        f"statistics included, before and after its steps); "
+        f"stage 3 refine_net {moved3:.3g}, depth_and_inpaint unchanged")
+
+    # held-out quality of stage 3's checkpoint, as the quality run scores
+    opt3 = default_opt(device="cuda", dtype="bfloat16",
+                       procedural_length=n_train, batch_size=b)
+    model = get_model("genre_full_model")(opt3)
+    trainer = Trainer(model, opt3)
+    trainer.initialize(0)
+    trainer.load(os.path.join(d3, "checkpoint.pt"))
+    vali = get_dataset("procedural")(opt3, "vali", model=model)
+    rk.reset_launches()
+    sk.reset_launches()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res, _ = eval_quality(model, DataLoader(vali, b, 4), tag="staged")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {**rk.launches, **sk.launches, **ck.launches}
+    n = len(vali)
+    check(res["n_items"] == n == 16 and res["chamfer_n"] == 16
+          and 0.0 <= res["iou_best"] <= 1.0
+          and bool(np.isfinite(res["chamfer_mean"])),
+          f"held-out quality {res}")
+    check(launches == {"render_stage1": n // b, "render_stage2_scan": n // b,
+                       "render_stage2_samples": 0, "deconv_final": n // b,
+                       "nn_min_dist": n}, f"scoring launches {launches}")
+    runs["score"] = dict(seconds=seconds, launches=launches, **res)
+    log(f"[staged] eval_quality of stage 3 on {n} held-out scenes: IoU@0.5 "
+        f"{res['iou_0.5']:.4f}, IoU@best {res['iou_best']:.4f} (th "
+        f"{res['iou_best_th']}), Chamfer {res['chamfer_mean']:.4f} (mean of "
+        f"{res['chamfer_n']}; 8-step models); {seconds:.1f} s; launches "
+        f"{launches}")
+    del model, trainer
+    shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return runs
+
+
 def phase_train_profile(device, runs):
     """torch.profiler over one training step of each kind, after two warm
     ones, on the synthetic batch: device time per stage (the forward's
@@ -1623,6 +1824,7 @@ def main() -> int:
     runs, train_launches = phase_train(device, work)
     # K5 runs on the training path only: its launches are the joint run's
     launches[k5] = train_launches[k5]
+    staged = phase_staged(device, work)
     phase_train_profile(device, runs)
 
     kernels = []
@@ -1637,7 +1839,9 @@ def main() -> int:
             "bound_us": bms * 1e3, "bound_by": by,
             "bound_share": bms / ms[name],
             "achieved_gb_per_s": nbytes / ms[name] / 1e6,
-            "library_ms": library_ms[name], "library_call": LIBRARY[name]})
+            "library_ms": library_ms[name], "library_call": LIBRARY[name],
+            "launches_staged": sum(r["launches"].get(name, 0)
+                                   for r in staged.values())})
     # K4 is timed at 8 x 8192 x 8192 points; the scoring path gives it the
     # eval protocol's 1 x 1024 x 1024, where launch latency dominates
     ev = k4_times[eval_shape]
@@ -1673,7 +1877,12 @@ def main() -> int:
         f"{8e3 / fwd32_ms[True]:.1f} recon/s (cuDNN TF32 on); training "
         f"step, batch "
         f"4, bf16: stage 3 {runs['stage3']['step_ms']:.1f} ms, joint "
-        f"{runs['joint']['step_ms']:.1f} ms; total "
+        f"{runs['joint']['step_ms']:.1f} ms; staged (procedural) "
+        f"marrnet1 {staged['marrnet1']['step_ms']:.1f} ms, "
+        f"depth_pred_with_sph_inpaint "
+        f"{staged['depth_pred_with_sph_inpaint']['step_ms']:.1f} ms, "
+        f"genre_full_model {staged['genre_full_model']['step_ms']:.1f} ms; "
+        f"total "
         f"{time.perf_counter() - t_start:.0f} s")
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,12 +7,16 @@ import importlib
 from typing import Dict, Type
 
 _MODEL_MODULES: Dict[str, str] = {
+    "marrnet1": "genre_shapehd_tpu_torch.models.marrnet1",
+    "depth_pred_with_sph_inpaint":
+        "genre_shapehd_tpu_torch.models.depth_inpaint",
     "genre_full_model": "genre_shapehd_tpu_torch.models.genre_full",
 }
 
 _DATASET_MODULES: Dict[str, str] = {
     "test": "genre_shapehd_tpu_torch.data.testset",
     "synthetic": "genre_shapehd_tpu_torch.data.synthetic",
+    "procedural": "genre_shapehd_tpu_torch.data.procedural",
 }
 
 

@@ -1,2 +1,2 @@
 """Host-side data: PNG I/O, test-time preprocessing, the glob test
-dataset and the batched loader."""
+dataset, the synthetic and procedural datasets and the batched loader."""

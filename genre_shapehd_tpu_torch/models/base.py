@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from ..core.convert import jax_to_torch
 from ..core.device import resolve_device
 from ..data import preprocess as pp
 from ..nn import init_weights
@@ -65,6 +66,14 @@ def masked_mse(pred: torch.Tensor, gt: torch.Tensor,
     return (mask * (pred - gt) ** 2).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def as_numpy(x) -> np.ndarray:
+    """A host array: a tensor as float32 numpy (bfloat16 promoted),
+    anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x)
+
+
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
                     ) -> torch.Tensor:
     return F.binary_cross_entropy_with_logits(logits, labels)
@@ -77,6 +86,7 @@ class ModelBase:
     rgb_light_noise = 0.1
 
     requires: List[str] = []
+    gt_names: List[str] = []
     metrics: List[str] = ["loss"]
 
     @classmethod
@@ -106,6 +116,10 @@ class ModelBase:
         self.net.to(self.device)
         self.optimizer = self.adam(self.net.parameters())
         self.step = 0
+
+    def load_weights(self, params: Dict, batch_stats: Dict) -> None:
+        """Load a JAX-layout parameter tree (``core/convert.py``)."""
+        self.net.load_state_dict(jax_to_torch(params, batch_stats))
 
     def adam(self, params) -> torch.optim.Adam:
         """Adam with the options' lr and betas, weight decay added to the
@@ -195,6 +209,21 @@ class ModelBase:
                                clamp=(val.min(), val.max()))
                 out[key] = (im * self.scale_25d).astype(np.float32)
         return out
+
+    # ----------------------------------------------------------- output
+    @staticmethod
+    def mask(image, mask01, bg: float = 1.0):
+        """Blend foreground and background by a [0, 1] mask."""
+        return mask01 * image + (1.0 - mask01) * bg
+
+    @classmethod
+    def postprocess(cls, t, bg: float = 1.0, input_mask=None):
+        """A 2.5D map back to [0, 1] (divided by ``scale_25d``), its
+        background set to ``bg`` where ``input_mask`` is given."""
+        scaled = t / cls.scale_25d
+        if input_mask is not None:
+            return cls.mask(scaled, input_mask, bg)
+        return scaled
 
     # ------------------------------------------------------ bookkeeping
     @property

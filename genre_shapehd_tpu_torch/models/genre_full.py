@@ -13,7 +13,7 @@ the refine net learns.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,32 +21,46 @@ from torch import nn
 from torch.profiler import record_function
 
 from .. import ops
-from ..core.convert import jax_to_torch
 from ..nn import UNet3D, init_weights
-from .base import bce_with_logits, net_autocast
+from .base import ModelBase, as_numpy, bce_with_logits, net_autocast
 from .depth_inpaint import DepthInpaintNet, Model as DepthInpaintModel
 from .test_base import TestMixin
 
 
 class GenreNet(nn.Module):
+    """Stage 2 (``DepthInpaintNet``, its flags as keywords) and the
+    refinement.  ``gt_sph_full``: the refine net backprojects the
+    ground-truth full spherical map instead of net2's (an oracle of the
+    quality benchmark)."""
+
     def __init__(self, im_size: int = 256, vox_res: int = 128,
                  sph_res: int = 128, z_res: int = 256,
                  padding_margin: int = 16, joint_train: bool = False,
-                 refine_nf: int = 20, dtype: torch.dtype = torch.float32):
+                 refine_nf: int = 20, dtype: torch.dtype = torch.float32,
+                 gt_sph_full: bool = False, **depth_inpaint_flags):
         super().__init__()
         self.vox_res, self.padding_margin, self.dtype = (
             vox_res, padding_margin, dtype)
         self.joint_train = joint_train
+        self.gt_sph_full = gt_sph_full
         self.depth_and_inpaint = DepthInpaintNet(
             im_size, vox_res, sph_res, z_res, padding_margin, joint_train,
-            dtype)
+            dtype, **depth_inpaint_flags)
         self.refine_net = UNet3D(nf=refine_nf, res=vox_res)
 
-    def forward(self, rgb: torch.Tensor, silhou: torch.Tensor
+    def forward(self, rgb: torch.Tensor, silhou: torch.Tensor,
+                spherical_depth: Optional[torch.Tensor] = None,
+                gt_depth: Optional[torch.Tensor] = None,
+                gt_minmax: Optional[torch.Tensor] = None,
+                gt_sph: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and self.joint_train):
-            out1 = self.depth_and_inpaint(rgb, silhou)
+            out1 = self.depth_and_inpaint(rgb, silhou, spherical_depth,
+                                          gt_depth, gt_minmax)
+        if self.gt_sph_full and gt_sph is not None:
+            # padded by the model's preprocess, as net2's output is
+            out1["pred_sph_full"] = gt_sph.detach()
         with record_function("genre.spherical_bp"):
             pred_proj_sph = ops.backproject_spherical_masked(
                 out1["pred_sph_full"][..., 0].float(), self.padding_margin,
@@ -72,6 +86,10 @@ class Model(DepthInpaintModel):
         parser, unique = DepthInpaintModel.add_arguments(parser)
         parser.add_argument("--inpaint_path", default=None, type=str,
                             help="pretrained inpainting module checkpoint")
+        parser.add_argument("--gt_sph_full", action="store_true",
+                            help="oracle: the refine net backprojects the "
+                                 "ground-truth full spherical map, not "
+                                 "net2's")
         parser.add_argument("--surface_weight", default=1.0, type=float,
                             help="weight for voxel surface prediction")
         parser.add_argument("--joint_w25d", default=0.01, type=float,
@@ -81,33 +99,35 @@ class Model(DepthInpaintModel):
                                  "inpaint_path", "joint_w25d"}
 
     def __init__(self, opt):
+        self.gt_sph_full = bool(getattr(opt, "gt_sph_full", False))
         super().__init__(opt)
         if self.joint_train:
             self.requires = self.requires + ["voxel"]
         else:
             self.requires = ["rgb", "silhou", "voxel"]
+            if self.gt_depth_input:
+                self.requires = self.requires + ["depth", "depth_minmax"]
+            if self.gt_minmax_input \
+                    and "depth_minmax" not in self.requires:
+                self.requires = self.requires + ["depth_minmax"]
+            if self.load_offline or self.gt_sph_full:
+                # the oracles read the ground-truth spherical maps
+                self.requires = self.requires + ["spherical"]
+        self.gt_names = self.gt_names + ["voxel"]
         self.metrics = self.metrics + ["voxel_loss", "surface_loss"]
         self.surface_weight = float(getattr(opt, "surface_weight", 1.0))
         self.joint_w25d = float(getattr(opt, "joint_w25d", 0.01))
-        self.net = GenreNet(
-            im_size=opt.im_size, vox_res=opt.vox_res, sph_res=opt.sph_res,
-            z_res=opt.z_res, padding_margin=opt.padding_margin,
-            joint_train=self.joint_train, dtype=self.dtype).eval()
         init_weights(self.net, torch.Generator().manual_seed(0))
         self.net.to(self.device)
 
+    def build_net(self) -> nn.Module:
+        return GenreNet(gt_sph_full=self.gt_sph_full,
+                        **self.depth_inpaint_kwargs())
+
     def init_state(self, seed: int = 0) -> None:
-        super().init_state(seed)
+        ModelBase.init_state(self, seed)   # net1_path is stage 2's
         if getattr(self.opt, "inpaint_path", None):
             self.load_subnet("depth_and_inpaint", self.opt.inpaint_path)
-
-    def load_weights(self, params: Dict, batch_stats: Dict) -> None:
-        """Load a JAX-layout parameter tree (``core/convert.py``)."""
-        self.net.load_state_dict(jax_to_torch(params, batch_stats))
-
-    def forward_batch(self, batch: Dict[str, torch.Tensor]
-                      ) -> Dict[str, torch.Tensor]:
-        return self.net(batch["rgb"], batch["silhou"])
 
     def compute_loss(self, pred, batch) -> Tuple[torch.Tensor, Dict]:
         loss, loss_data = (DepthInpaintModel.compute_loss(self, pred, batch)
@@ -152,11 +172,18 @@ class Model(DepthInpaintModel):
                 ops.coords.train_frame_to_gt_voxel(pred["pred_voxel"])
         return pred
 
-    def pack_output(self, pred: Dict[str, np.ndarray], batch: Dict) -> Dict:
-        return {"pred_voxel": pred["pred_voxel"],
-                "pred_proj_depth": pred["pred_proj_depth"],
-                "pred_proj_sph_full": pred["pred_proj_sph_full"],
-                "rgb_path": batch.get("rgb_path")}
+    def pack_output(self, pred: Dict, batch: Dict, add_gt: bool = True
+                    ) -> Dict:
+        pack = {}
+        if self.joint_train:
+            pack = DepthInpaintModel.pack_output(self, pred, batch,
+                                                 add_gt=add_gt)
+        for k in ("pred_voxel", "pred_proj_depth", "pred_proj_sph_full"):
+            pack[k] = as_numpy(pred[k])
+        pack["rgb_path"] = batch.get("rgb_path")
+        if add_gt and "voxel" in batch:
+            pack["gt_voxel"] = as_numpy(batch["voxel"])
+        return pack
 
 
 class ModelTest(TestMixin, Model):

@@ -1,16 +1,23 @@
-"""MarrNet-1's loss (counterpart of ``compute_loss`` in
-``genre_shapehd_tpu/models/marrnet1.py``): foreground-masked MSE on the
-normal and depth maps, full MSE on the silhouette, plus the
-(256²/2)-weighted min/max MSE.  GenRe's joint loss uses it; the MarrNet-1
-model itself is not ported yet."""
+"""MarrNet-1: RGB -> 2.5D sketches (normal, depth, silhouette [+ min/max])
+(counterpart of ``genre_shapehd_tpu/models/marrnet1.py``).
+
+One U-ResNet with three decoder heads and, under ``--pred_depth_minmax``,
+the scalar depth min/max head.  Loss: foreground-masked MSE on the normal
+and depth maps, full MSE on the silhouette, plus the (256²/2)-weighted
+min/max MSE.  GenRe's stage 2 trains on top of this net (``--net1_path``)
+and its joint loss reuses :meth:`Model.compute_loss`.
+"""
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch import nn
+from torch.profiler import record_function
 
-from .base import ModelBase, masked_mse
+from ..nn import UResNet
+from .base import ModelBase, as_numpy, masked_mse, net_autocast
 
 #: weight of the depth min/max term
 W_MINMAX = (256.0 ** 2) / 2.0
@@ -18,8 +25,57 @@ W_MINMAX = (256.0 ** 2) / 2.0
 
 class Model(ModelBase):
     requires = ["rgb", "depth", "silhou", "normal"]
+    gt_names = ["depth", "silhou", "normal"]
     metrics = ["loss", "depth", "silhou", "normal"]
-    pred_depth_minmax = False
+
+    @classmethod
+    def add_arguments(cls, parser):
+        parser.add_argument(
+            "--pred_depth_minmax", action="store_true",
+            help="also predict the depth min/max (for GenRe)")
+        parser.add_argument(
+            "--f32_heads", action="store_true",
+            help="run the 2.5D decoders and the min/max head in float32 "
+                 "over the encoder in --dtype")
+        parser.add_argument(
+            "--decoder_width", type=float, default=1.0,
+            help="decoder channel multiplier (1.0: the reference "
+                 "revuresnet18 widths)")
+        parser.add_argument(
+            "--no_aug", action="store_true",
+            help="disable train-time photometric augmentation")
+        return parser, set()
+
+    def __init__(self, opt):
+        super().__init__(opt)
+        self.pred_depth_minmax = bool(getattr(opt, "pred_depth_minmax",
+                                              False))
+        if self.pred_depth_minmax:
+            self.requires = self.requires + ["depth_minmax"]
+            self.gt_names = self.gt_names + ["depth_minmax"]
+            self.metrics = self.metrics + ["depth_minmax"]
+        self.net = self.build_net().eval()
+
+    def net1_kwargs(self) -> Dict:
+        """The U-ResNet's capacity and precision flags (a checkpoint loads
+        only into a net built with the same ones)."""
+        opt = self.opt
+        return dict(im_size=opt.im_size,
+                    decoder_width=float(getattr(opt, "decoder_width", 1.0)),
+                    head_dtype=(torch.float32 if getattr(opt, "f32_heads",
+                                                         False) else None))
+
+    def build_net(self) -> nn.Module:
+        return UResNet(3, (3, 1, 1), ("normal", "depth", "silhou"),
+                       pred_depth_minmax=self.pred_depth_minmax,
+                       **self.net1_kwargs())
+
+    def forward_batch(self, batch: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        rgb = batch["rgb"]
+        with record_function("genre.net1"), \
+                net_autocast(rgb.device, self.dtype):
+            return self.net(rgb)
 
     def compute_loss(self, pred: Dict[str, torch.Tensor],
                      batch: Dict[str, torch.Tensor]
@@ -39,3 +95,20 @@ class Model(ModelBase):
             loss_data["depth_minmax"] = loss_minmax
         loss_data["loss"] = loss
         return loss, loss_data
+
+    def pack_output(self, pred: Dict, batch: Dict, add_gt: bool = True
+                    ) -> Dict:
+        """The 2.5D maps back in [0, 1] on the host: normal on a white and
+        depth on a black background outside the ground-truth silhouette."""
+        out = {"rgb_path": batch.get("rgb_path")}
+        gt_silhou = self.postprocess(as_numpy(batch["silhou"]))
+        out["pred_normal"] = self.postprocess(
+            as_numpy(pred["normal"]), bg=1.0, input_mask=gt_silhou)
+        out["pred_silhou"] = self.postprocess(as_numpy(pred["silhou"]))
+        out["pred_depth"] = self.postprocess(
+            as_numpy(pred["depth"]), bg=0.0, input_mask=gt_silhou)
+        if self.pred_depth_minmax and "depth_minmax" in pred:
+            out["pred_depth_minmax"] = as_numpy(pred["depth_minmax"])
+            if add_gt and "depth_minmax" in batch:
+                out["gt_depth_minmax"] = as_numpy(batch["depth_minmax"])
+        return out

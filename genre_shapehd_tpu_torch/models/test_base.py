@@ -13,15 +13,11 @@ import numpy as np
 from ..core.checkpoint import load_net
 from ..data import preprocess as pp
 from ..viz.visualizer import Visualizer
+from .base import as_numpy
 
 CROP_SILHOU_THRES = 0.95
 CROP_IN_SIZE = 480
 CROP_PAD = 85
-
-
-def _to_numpy(t) -> np.ndarray:
-    """Device tensor -> host float32 array (bfloat16 promoted)."""
-    return t.detach().float().cpu().numpy()
 
 
 class TestMixin:
@@ -52,7 +48,7 @@ class TestMixin:
         outdir = join(self.output_dir, f"batch{batch_i:04d}")
         os.makedirs(outdir, exist_ok=True)
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
-        pred = {k: _to_numpy(v) for k, v in self.predict_step(arrays).items()}
+        pred = {k: as_numpy(v) for k, v in self.predict_step(arrays).items()}
         output = self.pack_output(pred, batch)
         self.visualizer.visualize(output, batch_i, outdir)
         np.savez(outdir + ".npz",

@@ -4,10 +4,13 @@ Seeded numpy inputs feed both the JAX package and the port.  Random
 weights put net1's depth and net2's spherical map far outside the unit
 cube, which would leave both backprojections empty; :func:`calibrate`
 rescales three output layers so that the geometry between the nets sees
-many points inside the cube.
+many points inside the cube.  :func:`exact_flax_variance` and
+:func:`grad_agreement` serve the train-step tests.
 """
 
 from __future__ import annotations
+
+from unittest import mock
 
 import numpy as np
 import torch
@@ -30,31 +33,74 @@ def scene_inputs(n: int, size: int, seed: int):
     return rgb, sil
 
 
+def exact_flax_variance():
+    """Flax's batch statistics with the two-pass variance (the JAX
+    reference of the train-step tests)."""
+    import flax.linen.normalization as flax_norm
+    orig = flax_norm._compute_stats
+
+    def exact(*args, **kwargs):
+        kwargs["use_fast_variance"] = False
+        return orig(*args, **kwargs)
+    return mock.patch.object(flax_norm, "_compute_stats", exact)
+
+
+def grad_agreement(net, ref_grads, prefix):
+    """Over the parameters under ``prefix`` whose reference gradient is not
+    negligible: the worst cosine and the worst distance of the norm ratio
+    from 1; and the largest port gradient norm, relative to the largest
+    reference one, where it is negligible (expected 0: biases ahead of a
+    BatchNorm)."""
+    from genre_shapehd_tpu_torch.core.convert import jax_to_torch
+    ref = jax_to_torch(ref_grads, {})
+    params = [(n, p) for n, p in net.named_parameters()
+              if n.startswith(prefix)]
+    norms = {n: float(np.linalg.norm(ref[n].numpy())) for n, _ in params}
+    big = max(norms.values())
+    cos_min, ratio_err, stray = 1.0, 0.0, 0.0
+    for n, p in params:
+        g = p.grad.numpy().ravel()
+        r = ref[n].numpy().ravel()
+        if norms[n] <= 1e-6 * big:
+            stray = max(stray, float(np.linalg.norm(g)) / big)
+            continue
+        cos_min = min(cos_min, float(g @ r) / (np.linalg.norm(g)
+                                               * norms[n]))
+        ratio_err = max(ratio_err, abs(np.linalg.norm(g) / norms[n] - 1))
+    return cos_min, ratio_err, stray
+
+
 def _get(tree, path):
     for k in path.split("/"):
         tree = tree[k]
     return tree
 
 
-def calibrate(params, batch_stats, rgb, sil, cfg=TINY, train=False):
+def calibrate(params, batch_stats, rgb, sil, cfg=TINY, train=False,
+              stage2=False):
     """Copies of the JAX-layout trees with (1) the min/max head fixed to
     (1.2, 2.2), (2) net1's depth decoder scaled to output std 30 and (3)
     net2's spherical decoder scaled to output std 1, measured with the
-    port's GenreNet on ``rgb``/``sil``: in eval mode, or with ``train``
-    as a joint train step runs it (every BatchNorm on batch statistics)."""
+    port's GenreNet on ``rgb``/``sil`` (``stage2``: the trees of the
+    stage-2 net alone, measured with its DepthInpaintNet): in eval mode,
+    or with ``train`` as a joint train step runs it (every BatchNorm on
+    batch statistics)."""
     from genre_shapehd_tpu_torch.core.convert import jax_to_torch
+    from genre_shapehd_tpu_torch.models.depth_inpaint import DepthInpaintNet
     from genre_shapehd_tpu_torch.models.genre_full import GenreNet
 
     params = _copy(params)
-    net1 = "depth_and_inpaint/net1/"
+    prefix = "" if stage2 else "depth_and_inpaint/"
+    net1 = prefix + "net1/"
     head = _get(params, net1 + "MinmaxHead_0/Dense_2")
     head["kernel"] = np.zeros_like(head["kernel"])
     head["bias"] = np.array([1.2, 2.2], np.float32)
-    net = GenreNet(**cfg, joint_train=train).train(train)
+    net = (DepthInpaintNet if stage2 else GenreNet)(
+        **cfg, joint_train=train).train(train)
     for path, key, target in (
             (net1 + "decoder_depth/Deconv_1/ConvTranspose_0", "depth", 30.0),
-            ("depth_and_inpaint/net2/decoder_spherical/Deconv_1/"
-             "ConvTranspose_0", "pred_sph_full", 1.0)):
+            (prefix + "net2/decoder_spherical/Deconv_1/ConvTranspose_0",
+             "pred_sph_full", 1.0)):
         net.load_state_dict(jax_to_torch(params, batch_stats))
         with torch.no_grad():
             out = net(torch.from_numpy(rgb), torch.from_numpy(sil))

@@ -55,6 +55,8 @@ from genre_shapehd_tpu_torch.ops.voxel import surface_from_solid
 from genre_shapehd_tpu_torch.train import state as tstate
 
 from _torch_port_util import TINY, calibrate, scene_inputs
+from _torch_port_util import exact_flax_variance as _exact_flax_variance
+from _torch_port_util import grad_agreement as _grad_agreement
 
 torch.set_num_threads(4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,16 +70,6 @@ LR = 1e-4
 
 def _to_np(tree):
     return jax.tree.map(np.asarray, tree)
-
-
-def _exact_flax_variance():
-    """Flax's batch statistics with the two-pass variance."""
-    orig = flax_norm._compute_stats
-
-    def exact(*args, **kwargs):
-        kwargs["use_fast_variance"] = False
-        return orig(*args, **kwargs)
-    return mock.patch.object(flax_norm, "_compute_stats", exact)
 
 
 def _solids(n, res, seed):
@@ -211,30 +203,6 @@ def _jax_steps(joint):
                 loss=_to_np(loss_data),
                 state1=jax.tree.map(np.asarray, state1), grads1=_to_np(grads1),
                 state2=jax.tree.map(np.asarray, state2))
-
-
-def _grad_agreement(net, ref_grads, prefix):
-    """Over the parameters under ``prefix`` whose reference gradient is not
-    negligible: the worst cosine and the worst distance of the norm ratio
-    from 1; and the largest port gradient norm, relative to the largest
-    reference one, where it is negligible (expected 0: biases ahead of a
-    BatchNorm)."""
-    ref = jax_to_torch(ref_grads, {})
-    params = [(n, p) for n, p in net.named_parameters()
-              if n.startswith(prefix)]
-    norms = {n: float(np.linalg.norm(ref[n].numpy())) for n, _ in params}
-    big = max(norms.values())
-    cos_min, ratio_err, stray = 1.0, 0.0, 0.0
-    for n, p in params:
-        g = p.grad.numpy().ravel()
-        r = ref[n].numpy().ravel()
-        if norms[n] <= 1e-6 * big:
-            stray = max(stray, float(np.linalg.norm(g)) / big)
-            continue
-        cos_min = min(cos_min, float(g @ r) / (np.linalg.norm(g)
-                                               * norms[n]))
-        ratio_err = max(ratio_err, abs(np.linalg.norm(g) / norms[n] - 1))
-    return cos_min, ratio_err, stray
 
 
 @contextlib.contextmanager
