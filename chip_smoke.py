@@ -70,6 +70,21 @@ raising on failure:
     then ``tools/qualrun_torch.py``'s ``eval_quality`` of stage 3's
     checkpoint on 16 held-out scenes (IoU, Chamfer; K4 once an item).
 
+ 8. the MarrNet-2 / ShapeHD family: K3 at MarrNet-2's decoder (8, 32,
+    64³, a bias) and the WGAN-GP generator's (4, 64, 64³, no bias) shapes
+    against its plain version (bf16 under ``k3_bf16_within``, float32 at
+    1e-5), timed beside its bound and ``F.conv_transpose3d``; then
+    ``cli.train`` on phase 7's scenes at 256² -> 128³, bfloat16, batch 4,
+    8 steps each: marrnet2 --canon_sup, wgangp --canon_voxel (and with
+    --gan_d_iter 2), shapehd --canon_sup --marrnet2 --gan --w_gan_loss
+    1e-3, marrnet --canon_sup --marrnet1 <phase 7's stage 1> --marrnet2:
+    finite losses, K3's launches, which nets moved (the frozen ones bit
+    for bit), step time, peak memory; ``cli.test --net marrnet`` and
+    ``--net shapehd --marrnet1_file`` on phase 3's photos at batch 8 (K3
+    once / twice a batch, the .npz keys, the meshes); the ShapeHD
+    checkpoint's held-out score (K4 once an item); a torch.profiler pass
+    over one WGAN-GP and one ShapeHD step.
+
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Scratch files go to build/chip_smoke/ under the repository.
 """
@@ -878,8 +893,8 @@ def _device_us(evt, self_only=False):
     return evt.self_device_time_total if self_only else evt.device_time_total
 
 
-def device_profile(prof, n, wall_ms, own_names):
-    """From a profile of ``n`` runs: device ms per ``genre.*`` span
+def device_profile(prof, n, wall_ms, own_names, prefixes=("genre.",)):
+    """From a profile of ``n`` runs: device ms per span (``prefixes``)
     (kernels launched under its CPU side, and its length on the device's
     timeline), kernel time per run, the hand-written kernels by name and
     the top kernels; logs them with the idle share against
@@ -894,7 +909,7 @@ def device_profile(prof, n, wall_ms, own_names):
     # length of the span on the device's timeline (kernels + gaps)
     stages = {}
     for e in events:
-        if e.key.startswith("genre."):
+        if e.key.startswith(prefixes):
             on_device = e.device_type == DeviceType.CUDA
             val = _device_us(e, on_device) / n / 1e3
             stages.setdefault(e.key, {})[
@@ -1530,13 +1545,9 @@ def phase_train(device, work):
 
 
 def _net_state(path):
-    """A checkpoint's net as {state_dict key: tensor}."""
+    """A checkpoint's first net as {state_dict key: tensor}."""
     from genre_shapehd_tpu_torch.core.checkpoint import load_checkpoint
-    from genre_shapehd_tpu_torch.core.convert import jax_to_torch
-    net = load_checkpoint(path)["nets"][0]
-    return {k: v for k, v in jax_to_torch(net["params"],
-                                          net["batch_stats"]).items()
-            if not k.endswith("num_batches_tracked")}
+    return _flat_net(load_checkpoint(path)["nets"][0])
 
 
 def _max_change(after, before, prefix):
@@ -1553,7 +1564,8 @@ def phase_staged(device, work):
     for ``TRAIN["steps"]`` steps and one eval batch; then
     ``tools/qualrun_torch.py``'s ``eval_quality`` of stage 3's checkpoint
     on 16 held-out scenes.  Returns each stage's step time, memory and
-    launches, and the score's metrics and launches."""
+    launches, and the score's metrics and launches; and the path of stage
+    1's checkpoint, kept for phase 8."""
     import torch
     from genre_shapehd_tpu_torch.cli import train as cli_train
     from genre_shapehd_tpu_torch.core.registry import get_dataset, get_model
@@ -1714,9 +1726,383 @@ def phase_staged(device, work):
         f"{res['chamfer_n']}; 8-step models); {seconds:.1f} s; launches "
         f"{launches}")
     del model, trainer
+    # stage 1's checkpoint is MarrNet-1 for phase 8
+    marrnet1_ckpt = os.path.join(work, "marrnet1.pt")
+    os.replace(os.path.join(d1, "checkpoint.pt"), marrnet1_ckpt)
+    shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return runs, marrnet1_ckpt
+
+
+#: K3's shapes on the MarrNet / ShapeHD paths at 128³: MarrNet-2's decoder
+#: (32 -> 1, a bias) at batch 8, as dec6 is timed, and the WGAN-GP
+#: generator (64 -> 1, no bias) at its training batch of 4
+FAMILY_K3 = {"decoder": dict(b=8, cin=32, s=64, bias=True),
+             "generator": dict(b=4, cin=64, s=64, bias=False)}
+
+
+def phase_family_kernels(device, flush):
+    """K3 at MarrNet-2's decoder and the WGAN-GP generator's shapes,
+    against its plain version in bf16 (``k3_bf16_within``) and float32
+    (1e-5 of the scale, TF32 off), timed (CUDA events, L2 flushed) beside
+    its bound and ``F.conv_transpose3d``; a layer without a bias hands
+    K3 a zero one.  Returns a row per shape and type."""
+    import torch
+    import torch.nn.functional as F
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    rows = {}
+    for name, shp in FAMILY_K3.items():
+        b, cin, s = shp["b"], shp["cin"], shp["s"]
+        g = torch.Generator(device=device).manual_seed(21)
+        x32 = torch.randn((b, cin, s, s, s), generator=g, device=device)
+        w = torch.randn((cin, 1, 4, 4, 4), generator=g, device=device) \
+            * (0.5 / cin ** 0.5)
+        bias = torch.full((1,), 0.1 if shp["bias"] else 0.0, device=device)
+        n_out = b * (2 * s) ** 3
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            sk.reset_launches()
+            out = sk.deconv_final(x, w, bias)
+            torch.cuda.synchronize()
+            check(sk.launches == {"deconv_final": 1} and out.dtype == dtype
+                  and out.shape == (b, 1, 2 * s, 2 * s, 2 * s),
+                  f"K3 {name} {dtype}: launches {sk.launches}, {out.shape}")
+            ref = sk.deconv_final_plain(x, w, bias).float()
+            scale = float(ref.abs().max())
+            d = (out.float() - ref).abs()
+            err = (float(d.max()), float(d.mean()))
+            tag = f"{name} {str(dtype)[6:]}"
+            if dtype == torch.bfloat16:
+                exact = F.conv_transpose3d(x.float(), w.to(dtype).float(),
+                                           bias, stride=2, padding=1)
+                e = float((out.float() - exact).abs().max())
+                e_plain = float((ref - exact).abs().max())
+                ok, waived = k3_bf16_within(*err, e, e_plain, scale,
+                                            float(exact.abs().max()))
+                del exact
+                check(ok, f"K3 {tag}: {err} vs plain, {e} (plain "
+                          f"{e_plain}) vs float32, scale {scale}")
+                log(f"[kernels] K3 {tag} {shp}: max/mean abs err "
+                    f"{err[0]:.3g}/{err[1]:.3g} vs plain, max {e:.3g} vs "
+                    f"float32 (plain {e_plain:.3g}), scale {scale:.3g}"
+                    + (" (1e-2 bound waived)" if waived else ""))
+                bnd = bound(x.numel() * 2 + cin * 64 * 4 + 4 + n_out * 2,
+                            2.0 * 8 * cin * n_out, H100_BF16_FLOPS)
+                lib = (lambda x=x, wb=w.to(dtype), bb=bias.to(dtype):
+                       F.conv_transpose3d(x, wb, bb, stride=2, padding=1))
+            else:
+                check(err[0] <= 1e-5 * scale,
+                      f"K3 {tag}: {err[0]} vs plain at scale {scale}")
+                log(f"[kernels] K3 {tag} {shp}: max abs err {err[0]:.3g} "
+                    f"vs plain at scale {scale:.3g}")
+                bnd = bound(x.numel() * 4 + cin * 64 * 4 + 4 + n_out * 4,
+                            2.0 * 8 * cin * n_out)
+                lib = (lambda x=x: F.conv_transpose3d(x, w, bias, stride=2,
+                                                      padding=1))
+            del out, ref, d
+            ms = time_ms(lambda x=x: sk.deconv_final(x, w, bias), flush)
+            plain_ms = time_ms(lambda x=x: sk.deconv_final_plain(x, w, bias),
+                               flush)
+            library_ms = time_ms(lib, flush)
+            bms, by, nbytes = bnd
+            rows[tag.replace(" ", "_")] = dict(
+                shape=[b, cin, s], bias=shp["bias"], ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+                bound_by=by, bound_share=bms / ms,
+                achieved_gb_per_s=nbytes / ms / 1e6, max_abs_err=err[0])
+            log(f"[kernels] K3 {tag} {[b, cin, s]}: {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, F.conv_transpose3d {library_ms:.4f} ms, "
+                f"bound {bms * 1e3:.1f} us ({by}), {100 * bms / ms:.1f} % "
+                f"of the bound")
+        del x32, x
+    return rows
+
+
+def phase_family(device, work, marrnet1_ckpt):
+    """The MarrNet-2 / ShapeHD family through ``cli.train`` on phase 7's
+    procedural scenes at 256² -> 128³, bfloat16, batch 4, 8 steps each:
+    marrnet2 --canon_sup; wgangp --canon_voxel, and again with
+    --gan_d_iter 2; shapehd --canon_sup --marrnet2 <marrnet2> --gan
+    <wgangp> --w_gan_loss 1e-3; marrnet --canon_sup --marrnet1 <phase 7's
+    stage 1> --marrnet2 <marrnet2>.  Finite losses, K3's launches, which
+    nets moved, step time, peak memory.  Then ``cli.test --net marrnet``
+    and ``--net shapehd --marrnet1_file`` on phase 3's 16 photos at batch
+    8 (K3 once / twice a batch, the .npz keys, the meshes), and
+    ``tools/qualrun_shapehd_torch.py``'s ``eval_quality`` of the ShapeHD
+    checkpoint on 16 held-out scenes (K4 once an item)."""
+    import torch
+    from genre_shapehd_tpu_torch.cli import test as cli_test
+    from genre_shapehd_tpu_torch.cli import train as cli_train
+    from genre_shapehd_tpu_torch.core.checkpoint import load_checkpoint
+    from genre_shapehd_tpu_torch.core.registry import get_dataset, get_model
+    from genre_shapehd_tpu_torch.data.loader import DataLoader
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    from genre_shapehd_tpu_torch.ops.cuda import chamfer_kernel as ck
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    from genre_shapehd_tpu_torch.train.loop import Trainer
+    from genre_shapehd_tpu_torch.train.state import adam_moments
+    from tools.qualrun_shapehd_torch import eval_quality
+    b, steps = TRAIN["batch"], TRAIN["steps"]
+    n_train = b * steps                  # phase 7's scenes, in memory
+    logdir = os.path.join(work, "family")
+    base = ["--dataset", "procedural", "--procedural_length", str(n_train),
+            "--batch_size", str(b), "--dtype", "bfloat16", "--epoch", "1",
+            "--epoch_batches", str(steps), "--eval_batches", "1",
+            "--workers", "4", "--logdir", logdir, "--log_time",
+            "--log_batch", "--manual_seed", "0", "--save_net", "0",
+            "--device", "cuda"]
+    run = lambda net, lr, expr="0": os.path.join(            # noqa: E731
+        logdir, f"{net}_procedural_{lr}", expr)
+    dA, dB, dB2, dC, dD = (run("marrnet2", 0.001), run("wgangp", 0.0001),
+                           run("wgangp", 0.0001, "1"),
+                           run("shapehd", 0.0001), run("marrnet", 0.0001))
+    ckA, ckB = (os.path.join(d, "checkpoint.pt") for d in (dA, dB))
+    # K3 a train step and an eval batch: MarrNet-2's decoder once; G once
+    # in D's phase and once in its own (every step, or every second one),
+    # and once an eval batch; ShapeHD's net once a step and, with the
+    # frozen copy, twice an eval batch
+    runs_spec = (
+        ("marrnet2", ["--net", "marrnet2", "--canon_sup", "--lr", "1e-3"],
+         dA, "loss", steps + 1),
+        ("wgangp", ["--net", "wgangp", "--canon_voxel", "--lr", "1e-4"],
+         dB, "err_d_gp", 2 * steps + 1),
+        ("wgangp_d_iter2", ["--net", "wgangp", "--canon_voxel",
+                            "--gan_d_iter", "2", "--lr", "1e-4",
+                            "--expr_id", "1"], dB2, "err_d_gp",
+         steps + steps // 2 + 1),
+        ("shapehd", ["--net", "shapehd", "--canon_sup", "--marrnet2", ckA,
+                     "--gan", ckB, "--w_gan_loss", "1e-3", "--lr", "1e-4"],
+         dC, "gan", steps + 2),
+        ("marrnet", ["--net", "marrnet", "--canon_sup", "--marrnet1",
+                     marrnet1_ckpt, "--marrnet2", ckA, "--lr", "1e-4"],
+         dD, "loss", steps + 1))
+    runs = {}
+    for name, extra, d, metric, k3 in runs_spec:
+        rk.reset_launches()
+        sk.reset_launches()
+        ck.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        rc = cli_train.main(extra + base)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {**rk.launches, **sk.launches, **ck.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(rc == 0, f"cli.train {name} returned {rc}")
+        want = {k: 0 for k in launches}
+        want["deconv_final"] = k3
+        check(launches == want, f"{name}: launches {launches} != {want}")
+        rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
+        check(len(rows) == steps, f"{name}: {len(rows)} logged steps")
+        terms = [k for k in rows[0] if k not in (
+            "epoch", "batch", "size", "batch_time", "data_time")]
+        check(metric in terms and all(np.isfinite(float(row[k]))
+                                      for row in rows for k in terms),
+              f"{name}: loss terms {terms} not all finite")
+        times = [float(row["batch_time"]) for row in rows]
+        runs[name] = dict(
+            step_ms=statistics.median(times[2:]) * 1e3, peak_gib=peak,
+            held_gib=held, seconds=seconds, launches=launches,
+            loss=[round(float(row["loss"]), 4) for row in rows])
+        log(f"[family] cli.train {name}: {steps} steps of batch {b}, bf16, "
+            f"256^2 -> 128^3; loss {runs[name]['loss']}; step "
+            f"{runs[name]['step_ms']:.1f} ms (median of steps 3..{steps}; "
+            f"first two {times[0] * 1e3:.0f}, {times[1] * 1e3:.0f} ms); "
+            f"peak memory {peak:.2f} GiB ({held:.2f} GiB held before the "
+            f"run); {seconds:.1f} s wall with set-up; launches {launches}")
+
+    def nets(d):
+        payload = load_checkpoint(os.path.join(d, "checkpoint.pt"))
+        return payload, {n: _flat_net(net) for n, net in
+                         zip(payload["net_names"], payload["nets"])}
+
+    def start(net, **kw):
+        model = get_model(net)(default_opt(device="cpu", **kw))
+        model.init_state(0)
+        return {n: {k: v for k, v in m.state_dict().items()
+                    if not k.endswith("num_batches_tracked")}
+                for n, m in model.net_modules().items()}
+
+    # which nets moved: MarrNet-2 from its seeded start; both WGAN-GP nets
+    # (G's Adam count halved under --gan_d_iter 2); ShapeHD's net from
+    # MarrNet-2's checkpoint, its frozen copy and critic bit for bit;
+    # MarrNet's MarrNet-2 from the checkpoint, MarrNet-1 bit for bit
+    _, a = nets(dA)
+    moved = {"marrnet2": _max_change(a["net"], start(
+        "marrnet2", canon_sup=True)["net"], "")}
+    w_init = start("wgangp", canon_voxel=True)
+    for name, d, counts in (("wgangp", dB, [steps, steps]),
+                            ("wgangp_d_iter2", dB2, [steps // 2, steps])):
+        payload, w = nets(d)
+        got = [adam_moments(o)[0] for o in payload["optimizers"]]
+        check(payload["opt_names"] == ["net_g", "net_d"] and got == counts,
+              f"{name}: Adam counts {got} != {counts}")
+        check(bool(np.isfinite(float(payload["extra"]["last_err_g"]))),
+              f"{name}: last_err_g {payload['extra']}")
+        moved[name] = {n: _max_change(w[n], w_init[n], "")
+                       for n in ("net_g", "net_d")}
+    _, c = nets(dC)
+    _, wB = nets(dB)
+    for key, want in (("net_noft", a["net"]), ("net_d", wB["net_d"])):
+        for k, v in want.items():
+            check(torch.equal(c[key][k], v), f"shapehd changed {key}.{k}")
+    moved["shapehd"] = _max_change(c["net"], a["net"], "")
+    _, m = nets(dD)
+    for k, v in _net_state(marrnet1_ckpt).items():
+        check(torch.equal(m["net"]["marrnet1." + k], v),
+              f"marrnet changed marrnet1.{k}")
+    moved["marrnet"] = _max_change(
+        m["net"], {"marrnet2." + k: v for k, v in a["net"].items()},
+        "marrnet2.")
+    check(moved["marrnet2"] > 0 and moved["shapehd"] > 0
+          and moved["marrnet"] > 0
+          and all(v > 0 for n in ("wgangp", "wgangp_d_iter2")
+                  for v in moved[n].values()), f"moved {moved}")
+    log(f"[family] largest weight change: {json.dumps(moved)}; ShapeHD's "
+        f"net_noft and net_d, MarrNet's marrnet1 (statistics included) "
+        f"equal to the checkpoints they were loaded from")
+    runs["moved"] = moved
+
+    # serving: cli.test on phase 3's photos.  The meshes are drawn at the
+    # solid-occupancy level 0.5: at the default 0.25 an 8-step net's noisy
+    # field gives 2 M triangles a mesh (about 230 MB of .obj each)
+    photos = os.path.join(work, "photos")
+    vis_param = os.path.join(work, "vis_param.json")
+    with open(vis_param, "w") as f:
+        json.dump({"voxel": {"isosurf_thres": 0.5}}, f)
+    per_item = {"marrnet": ["00_rgb.png", "04_rgb.png", "05_pred_depth.png",
+                            "06_pred_silhou.png", "07_pred_normal.png",
+                            "12_pred_voxel.obj"]}
+    per_item["shapehd"] = per_item["marrnet"] + ["11_pred_voxel_noft.obj"]
+    for net, ckpt, extra, k3 in (
+            ("marrnet", os.path.join(dD, "checkpoint.pt"), [], 1),
+            ("shapehd", os.path.join(dC, "checkpoint.pt"),
+             ["--marrnet1_file", marrnet1_ckpt], 2)):
+        out_dir = os.path.join(work, f"test_{net}")
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_test.main(["--net", net, "--net_file", ckpt] + extra + [
+            "--input_rgb", os.path.join(photos, "*_rgb.png"),
+            "--input_mask", os.path.join(photos, "*_silhouette.png"),
+            "--output_dir", out_dir, "--dtype", "bfloat16",
+            "--batch_size", "8", "--vis_workers", "8", "--vis_param_f",
+            vis_param, "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0 and sk.launches == {"deconv_final": 2 * k3},
+              f"cli.test {net}: rc {rc}, launches {sk.launches}")
+        keys = {"rgb_path", "rgb", "pred_silhou", "pred_normal",
+                "pred_depth", "pred_voxel"} | (
+            {"pred_voxel_noft"} if net == "shapehd" else set())
+        tris = []
+        for bi in range(2):
+            z = np.load(os.path.join(out_dir, f"batch{bi:04d}.npz"))
+            check(set(z.files) == keys, f"{net}: npz keys {z.files}")
+            check(z["pred_voxel"].shape == (8, 128, 128, 128)
+                  and bool(np.isfinite(z["pred_voxel"]).all()),
+                  f"{net}: pred_voxel {z['pred_voxel'].shape}")
+            d = os.path.join(out_dir, f"batch{bi:04d}")
+            want = sorted(f"{i:04d}_{f}" for i in range(8 * bi, 8 * bi + 8)
+                          for f in per_item[net])
+            check(sorted(os.listdir(d)) == want, f"{d}: {os.listdir(d)}")
+            tris += [parse_obj(os.path.join(d, f)) for f in want
+                     if f.endswith(".obj")]
+        runs[f"test_{net}"] = dict(seconds=seconds, launches=dict(
+            sk.launches), mesh_tris=[min(tris), max(tris)])
+        log(f"[family] cli.test --net {net}: 16 photos, 2 batches of 8, "
+            f"bf16, {seconds:.1f} s wall (set-up and meshes at iso 0.5 "
+            f"included); K3 "
+            f"launches {sk.launches['deconv_final']}; npz keys "
+            f"{sorted(keys)}; {len(tris)} meshes parsed, {min(tris)} to "
+            f"{max(tris)} triangles")
+
+    # the held-out score of the ShapeHD checkpoint, as the quality run's
+    opt = default_opt(device="cuda", dtype="bfloat16", canon_sup=True,
+                      w_gan_loss=1e-3, procedural_length=n_train,
+                      batch_size=b)
+    model = get_model("shapehd")(opt)
+    trainer = Trainer(model, opt)
+    trainer.initialize(0)
+    trainer.load(os.path.join(dC, "checkpoint.pt"))
+    vali = get_dataset("procedural")(opt, "vali", model=model)
+    rk.reset_launches()
+    sk.reset_launches()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res, _ = eval_quality(model, DataLoader(vali, b, 4), model.voxel_key,
+                          tag="family")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {**rk.launches, **sk.launches, **ck.launches}
+    n = len(vali)
+    check(res["n_items"] == n == 16 and res["chamfer_n"] == 16
+          and 0.0 <= res["iou_best"] <= 1.0
+          and bool(np.isfinite(res["chamfer_mean"]))
+          and bool(np.isfinite(res["critic_score"])),
+          f"held-out quality {res}")
+    check(launches == {"render_stage1": 0, "render_stage2_scan": 0,
+                       "render_stage2_samples": 0,
+                       "deconv_final": 2 * n // b, "nn_min_dist": n},
+          f"scoring launches {launches}")
+    runs["score"] = dict(seconds=seconds, launches=launches, **res)
+    log(f"[family] eval_quality of the ShapeHD checkpoint on {n} held-out "
+        f"scenes: IoU@0.5 {res['iou_0.5']:.4f}, IoU@best "
+        f"{res['iou_best']:.4f}, Chamfer {res['chamfer_mean']:.4f}, critic "
+        f"{res['critic_score']:.3g} (frozen copy "
+        f"{res['critic_score_noft']:.3g}; 8-step models); {seconds:.1f} s; "
+        f"launches {launches}")
+    del model, trainer
     shutil.rmtree(logdir, ignore_errors=True)
     torch.cuda.empty_cache()
     return runs
+
+
+def phase_family_profile(device, runs):
+    """torch.profiler over one train step of WGAN-GP and of ShapeHD, after
+    two warm ones, on procedural scenes: device time per span
+    (``wgangp.*``, ``shapehd.*``, ``marrnet.*``) and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from genre_shapehd_tpu_torch.core.registry import get_dataset, get_model
+    from genre_shapehd_tpu_torch.data.loader import collate
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    out = {}
+    for name, net, kw in (("wgangp", "wgangp", dict(canon_voxel=True)),
+                          ("shapehd", "shapehd", dict(canon_sup=True,
+                                                      w_gan_loss=1e-3))):
+        opt = default_opt(device="cuda", dtype="bfloat16", lr=1e-4,
+                          batch_size=TRAIN["batch"],
+                          procedural_length=TRAIN["batch"] * TRAIN["steps"],
+                          **kw)
+        model = get_model(net)(opt)
+        model.init_state(0)
+        ds = get_dataset("procedural")(opt, "train", model=model)
+        batch = model.device_batch(collate([ds[i] for i in range(4)]))
+        for _ in range(2):
+            model.train_step(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.train_step(batch)
+            torch.cuda.synchronize()
+        log(f"[family profile] {name} step:")
+        out[name] = device_profile(prof, 1, runs[name]["step_ms"],
+                                   OWN_KERNELS,
+                                   prefixes=("wgangp.", "shapehd.",
+                                             "marrnet."))
+        del model, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _flat_net(net):
+    """A checkpoint's net as {state_dict key: tensor}."""
+    from genre_shapehd_tpu_torch.core.convert import jax_to_torch
+    return {k: v for k, v in jax_to_torch(
+        net["params"], net.get("batch_stats") or {}).items()
+        if not k.endswith("num_batches_tracked")}
 
 
 def phase_train_profile(device, runs):
@@ -1810,6 +2196,7 @@ def main() -> int:
     errs[k5], ms[k5], plain_ms[k5], library_ms[k5], bounds[k5] = \
         phase_stage2_samples(device, flush)
     f32_rows = phase_float32(device, flush)
+    family_k3 = phase_family_kernels(device, flush)
     del flush
     phase_edge_shapes(device)
     phase_render_grad(device)
@@ -1824,8 +2211,10 @@ def main() -> int:
     runs, train_launches = phase_train(device, work)
     # K5 runs on the training path only: its launches are the joint run's
     launches[k5] = train_launches[k5]
-    staged = phase_staged(device, work)
+    staged, marrnet1_ckpt = phase_staged(device, work)
     phase_train_profile(device, runs)
+    family = phase_family(device, work, marrnet1_ckpt)
+    phase_family_profile(device, family)
 
     kernels = []
     for name in ("render_stage1", "render_stage2_scan", k3, k4, k5):
@@ -1841,7 +2230,10 @@ def main() -> int:
             "achieved_gb_per_s": nbytes / ms[name] / 1e6,
             "library_ms": library_ms[name], "library_call": LIBRARY[name],
             "launches_staged": sum(r["launches"].get(name, 0)
-                                   for r in staged.values())})
+                                   for r in staged.values()),
+            "launches_family": sum(r["launches"].get(name, 0)
+                                   for r in family.values()
+                                   if "launches" in r)})
     # K4 is timed at 8 x 8192 x 8192 points; the scoring path gives it the
     # eval protocol's 1 x 1024 x 1024, where launch latency dominates
     ev = k4_times[eval_shape]
@@ -1854,7 +2246,8 @@ def main() -> int:
     # K5 is timed at the training batch of 4
     by_name[k5].update(timed_shape=[TRAIN["batch"], MAIN["r"], MAIN["r"],
                                     MAIN["z"]])
-    by_name[k3].update(hmma_in_sass=sum(hmma.values()))
+    by_name[k3].update(hmma_in_sass=sum(hmma.values()),
+                       marrnet_shapehd=family_k3)
     # the default command's type at the main path's shapes
     for name, row in f32_rows.items():
         by_name[name]["float32"] = row
@@ -1882,8 +2275,10 @@ def main() -> int:
         f"depth_pred_with_sph_inpaint "
         f"{staged['depth_pred_with_sph_inpaint']['step_ms']:.1f} ms, "
         f"genre_full_model {staged['genre_full_model']['step_ms']:.1f} ms; "
-        f"total "
-        f"{time.perf_counter() - t_start:.0f} s")
+        f"family (procedural) "
+        + ", ".join(f"{k} {family[k]['step_ms']:.1f} ms" for k in (
+            "marrnet2", "wgangp", "wgangp_d_iter2", "shapehd", "marrnet"))
+        + f"; total {time.perf_counter() - t_start:.0f} s")
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -107,6 +107,8 @@ def parse_test(argv=None) -> argparse.Namespace:
     p.add_argument("--net", type=str, required=True, help="model alias")
     p.add_argument("--net_file", type=str, required=True,
                    help="checkpoint in the JAX package's format")
+    p.add_argument("--marrnet1_file", type=str, default=None,
+                   help="(shapehd) the MarrNet-1 checkpoint")
     p.add_argument("--input_rgb", type=str, required=True,
                    help="glob pattern for rgb images (PNG)")
     p.add_argument("--input_mask", type=str, default=None,

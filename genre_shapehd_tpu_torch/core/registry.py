@@ -11,6 +11,10 @@ _MODEL_MODULES: Dict[str, str] = {
     "depth_pred_with_sph_inpaint":
         "genre_shapehd_tpu_torch.models.depth_inpaint",
     "genre_full_model": "genre_shapehd_tpu_torch.models.genre_full",
+    "marrnet2": "genre_shapehd_tpu_torch.models.marrnet2",
+    "marrnet": "genre_shapehd_tpu_torch.models.marrnet",
+    "wgangp": "genre_shapehd_tpu_torch.models.wgangp",
+    "shapehd": "genre_shapehd_tpu_torch.models.shapehd",
 }
 
 _DATASET_MODULES: Dict[str, str] = {

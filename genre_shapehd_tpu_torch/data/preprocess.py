@@ -120,6 +120,10 @@ def normalize_colors(rgb01: np.ndarray) -> np.ndarray:
     return (rgb01 - np.asarray(IMAGENET_MEAN)) / np.asarray(IMAGENET_STD)
 
 
+def denormalize_colors(rgb_norm: np.ndarray) -> np.ndarray:
+    return rgb_norm * np.asarray(IMAGENET_STD) + np.asarray(IMAGENET_MEAN)
+
+
 def binarize(im: np.ndarray, thres: float) -> np.ndarray:
     return (im > thres).astype(im.dtype if im.dtype.kind == "f"
                                else np.float64)

@@ -11,7 +11,7 @@ Batches are the loaders' numpy dicts, channel-last.
 
 from __future__ import annotations
 
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from ..core.checkpoint import load_checkpoint
 from ..core.convert import jax_to_torch
 from ..core.device import resolve_device
 from ..data import preprocess as pp
@@ -38,7 +39,10 @@ def default_opt(**overrides) -> SimpleNamespace:
         manual_seed=None, im_size=256, vox_res=128, sph_res=128, z_res=256,
         padding_margin=16, dtype="float32", device="cuda",
         joint_train=False, inpaint_path=None,
-        surface_weight=1.0, joint_w25d=0.01, augment=True, no_aug=False)
+        surface_weight=1.0, joint_w25d=0.01, augment=True, no_aug=False,
+        canon_sup=False, canon_voxel=False, wgangp_lambda=10.0,
+        wgangp_norm=1.0, gan_d_iter=1, marrnet1=None, marrnet2=None,
+        gan=None, w_gan_loss=0.0, marrnet1_file=None)
     base.update(overrides)
     return SimpleNamespace(**base)
 
@@ -79,8 +83,24 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
     return F.binary_cross_entropy_with_logits(logits, labels)
 
 
+@contextmanager
+def keep_batch_stats(net: torch.nn.Module):
+    """A block in which ``net`` may run in train mode (BatchNorm on the
+    batch's statistics) without moving its running statistics: they are
+    put back at the end, as a Flax call that drops its ``batch_stats``
+    update leaves them."""
+    saved = {k: v.clone() for k, v in net.state_dict().items()
+             if k.endswith(("running_mean", "running_var",
+                            "num_batches_tracked"))}
+    try:
+        yield
+    finally:
+        net.load_state_dict(saved, strict=False)
+
+
 class ModelBase:
     silhou_thres = 0.999
+    pred_silhou_thres = 0.3
     scale_25d = 100.0
     rgb_jitter_d = 0.4
     rgb_light_noise = 0.1
@@ -120,6 +140,17 @@ class ModelBase:
     def load_weights(self, params: Dict, batch_stats: Dict) -> None:
         """Load a JAX-layout parameter tree (``core/convert.py``)."""
         self.net.load_state_dict(jax_to_torch(params, batch_stats))
+
+    def load_subnet(self, sub: str, path: str, src_index: int = 0) -> None:
+        """Load a pretrained sub-network (e.g. net1, or the whole
+        depth_and_inpaint of GenRe) from a checkpoint of either package:
+        the ``src_index``-th net, or its ``net`` subtree when it has one."""
+        src = load_checkpoint(path)["nets"][src_index]
+        params = src["params"].get("net", src["params"])
+        stats = src.get("batch_stats") or {}
+        stats = stats.get("net", stats)
+        self.net.get_submodule(sub).load_state_dict(
+            jax_to_torch(params, stats))
 
     def adam(self, params) -> torch.optim.Adam:
         """Adam with the options' lr and betas, weight decay added to the
@@ -233,3 +264,19 @@ class ModelBase:
     @property
     def optimizer_names(self) -> List[str]:
         return ["net"]
+
+    def net_modules(self) -> Dict[str, torch.nn.Module]:
+        """The nets by the names a checkpoint gives them."""
+        return {"net": self.net}
+
+    def optimizer_entries(self) -> Dict[str, Tuple]:
+        """(optimizer, the net it updates) by the checkpoint's names."""
+        return {"net": (self.optimizer, self.net)}
+
+    def extra_state(self) -> Dict:
+        """What a checkpoint's ``extra`` carries besides nets and
+        optimizers."""
+        return {}
+
+    def load_extra_state(self, extra: Dict) -> None:
+        pass

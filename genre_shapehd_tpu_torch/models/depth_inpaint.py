@@ -33,8 +33,6 @@ from torch import nn
 from torch.profiler import record_function
 
 from .. import ops
-from ..core.checkpoint import load_checkpoint
-from ..core.convert import jax_to_torch
 from ..nn import UResNet
 from .base import as_numpy, net_autocast, to_abs_depth
 from .marrnet1 import Model as DepthModel
@@ -201,17 +199,6 @@ class Model(DepthModel):
         super().init_state(seed)
         if getattr(self.opt, "net1_path", None):
             self.load_subnet("net1", self.opt.net1_path)
-
-    def load_subnet(self, sub: str, path: str, src_index: int = 0) -> None:
-        """Load a pretrained sub-network (e.g. net1, or the whole
-        depth_and_inpaint of GenRe) from a checkpoint of either package:
-        the ``src_index``-th net, or its ``net`` subtree when it has one."""
-        src = load_checkpoint(path)["nets"][src_index]
-        params = src["params"].get("net", src["params"])
-        stats = src.get("batch_stats") or {}
-        stats = stats.get("net", stats)
-        self.net.get_submodule(sub).load_state_dict(
-            jax_to_torch(params, stats))
 
     def oracle_inputs(self, batch: Dict[str, torch.Tensor]) -> Dict:
         """The batch's tensors that the oracle flags feed into the net."""

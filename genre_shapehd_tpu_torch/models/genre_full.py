@@ -188,6 +188,7 @@ class Model(DepthInpaintModel):
 
 class ModelTest(TestMixin, Model):
     """Photo -> full GenRe reconstruction."""
+    keep_silhou = True
 
     def __init__(self, opt):
         Model.__init__(self, opt)

@@ -10,8 +10,9 @@ from typing import Dict
 
 import numpy as np
 
-from ..core.checkpoint import load_net
+from ..core.checkpoint import load_checkpoint
 from ..data import preprocess as pp
+from ..train.state import load_nets
 from ..viz.visualizer import Visualizer
 from .base import as_numpy
 
@@ -29,16 +30,25 @@ class TestMixin:
             n_workers=getattr(opt, "vis_workers", 4),
             param_f=getattr(opt, "vis_param_f", None))
 
+    #: whether the cropped silhouette stays a network input (GenRe yes,
+    #: MarrNet and ShapeHD no)
+    keep_silhou = False
+
     def load_net_file(self, net_file: str) -> None:
-        self.load_weights(*load_net(net_file))
+        """Every net of the checkpoint into the model's net of its name."""
+        load_nets(load_checkpoint(net_file), self)
 
     def preprocess_wrapper(self, in_dict: Dict) -> Dict:
         """Crop photo and mask by the mask's bbox so framing matches
-        renders; GenRe keeps the cropped silhouette as a network input."""
+        renders; the cropped silhouette stays only with ``keep_silhou``."""
         bbox = pp.get_bbox(in_dict["silhou"], th=CROP_SILHOU_THRES)
-        for key in ("rgb", "silhou"):
-            in_dict[key] = pp.crop(in_dict[key], bbox, CROP_IN_SIZE, CROP_PAD,
-                                   pad_zero=False)
+        in_dict["rgb"] = pp.crop(in_dict["rgb"], bbox, CROP_IN_SIZE,
+                                 CROP_PAD, pad_zero=False)
+        if self.keep_silhou:
+            in_dict["silhou"] = pp.crop(in_dict["silhou"], bbox, CROP_IN_SIZE,
+                                        CROP_PAD, pad_zero=False)
+        else:
+            del in_dict["silhou"]
         return self.preprocess(in_dict, mode="test")
 
     def test_on_batch(self, batch_i: int, batch: Dict) -> Dict:

@@ -1,4 +1,4 @@
-"""ResNet-18 feature backbone, NCHW (counterpart of
+"""ResNet-18 feature backbone and encoder, NCHW (counterpart of
 ``genre_shapehd_tpu/nn/resnet.py``).
 
 Submodule names mirror the Flax parameter tree (``Conv_0``,
@@ -116,3 +116,16 @@ class ResNet18Features(nn.Module):
             if i % 2 == 1:
                 feats.append(x)
         return tuple(feats)
+
+
+class ResNet18Encoder(nn.Module):
+    """``ResNet18Features``, the mean over H and W of its last map, then
+    ``Dense(encode_dims)``: (N, in_planes, H, W) -> (N, encode_dims)."""
+
+    def __init__(self, in_planes: int = 3, encode_dims: int = 200):
+        super().__init__()
+        self.ResNet18Features_0 = ResNet18Features(in_planes)
+        self.Dense_0 = nn.Linear(ResNet18Features.widths[-1], encode_dims)
+
+    def forward(self, x):
+        return self.Dense_0(self.ResNet18Features_0(x)[-1].mean(dim=(2, 3)))

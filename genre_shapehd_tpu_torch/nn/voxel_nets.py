@@ -1,28 +1,37 @@
-"""3D conv building blocks, NCDHW (counterpart of the parts of
-``genre_shapehd_tpu/nn/voxel_nets.py`` that the 3D U-Net uses).
+"""3D conv building blocks and the voxel nets of the MarrNet / ShapeHD
+family, NCDHW (counterpart of ``genre_shapehd_tpu/nn/voxel_nets.py``).
 
 The JAX package's ``SubpixelTConv3D`` and ``DepthPhaseConv3D`` are TPU
 layouts of a plain ``ConvTranspose3d`` / ``Conv3d`` with the same
 parameters, so here each is the plain layer -- except the one-channel
-``k4 s2 p1`` deconv (dec6 of the 3D U-Net), which runs the hand-written
+``k4 s2 p1`` deconv (dec6 of the 3D U-Net, the last layer of
+``VoxelDecoder`` and of ``VoxelGenerator``), which runs the hand-written
 kernel K3 on CUDA tensors (``ops/cuda/subpixel_kernel.py``).  The wrapper
-names (``Conv_0``, ``ConvTranspose_0``) mirror the Flax parameter tree.
+names (``Conv_0``, ``ConvTranspose_0``, ``Deconv3D_3``, ``BatchNorm_1``)
+mirror the Flax parameter tree.
 """
 
 from __future__ import annotations
 
+import math
+
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.subpixel_kernel import deconv_final
+from .resnet import batch_norm
 
 
 class Conv3D(nn.Module):
     """Conv3d(k, s, p)."""
 
     def __init__(self, cin: int, features: int, kernel: int = 4,
-                 stride: int = 2, torch_padding: int = 1):
+                 stride: int = 2, torch_padding: int = 1,
+                 use_bias: bool = True):
         super().__init__()
-        self.Conv_0 = nn.Conv3d(cin, features, kernel, stride, torch_padding)
+        self.Conv_0 = nn.Conv3d(cin, features, kernel, stride, torch_padding,
+                                bias=use_bias)
 
     def forward(self, x):
         return self.Conv_0(x)
@@ -31,17 +40,109 @@ class Conv3D(nn.Module):
 class Deconv3D(nn.Module):
     """ConvTranspose3d(k, s, p).  With one output channel and k4 s2 p1 the
     layer's weight and bias go through :func:`deconv_final`: K3 on a CUDA
-    tensor, ``F.conv_transpose3d`` on a CPU tensor."""
+    tensor, ``F.conv_transpose3d`` on a CPU tensor.  Without a bias K3
+    adds a zero one, a buffer outside the ``state_dict``."""
 
     def __init__(self, cin: int, features: int, kernel: int = 4,
-                 stride: int = 1, torch_padding: int = 0):
+                 stride: int = 1, torch_padding: int = 0,
+                 use_bias: bool = True):
         super().__init__()
         self.ConvTranspose_0 = nn.ConvTranspose3d(
-            cin, features, kernel, stride, torch_padding)
+            cin, features, kernel, stride, torch_padding, bias=use_bias)
         self.final = (features, kernel, stride, torch_padding) == (1, 4, 2, 1)
+        if self.final and not use_bias:
+            self.register_buffer("zero_bias", torch.zeros(1),
+                                 persistent=False)
 
     def forward(self, x):
         if self.final:
+            bias = self.ConvTranspose_0.bias
             return deconv_final(x, self.ConvTranspose_0.weight,
-                                self.ConvTranspose_0.bias)
+                                self.zero_bias if bias is None else bias)
         return self.ConvTranspose_0(x)
+
+
+class VoxelDecoder(nn.Module):
+    """Latent (N, n_dims) -> (N, res, res, res) logits: a k4 VALID deconv
+    to 4³ at ``nf``, BatchNorm + ReLU, 2x deconvs halving the channels,
+    and a last 2x deconv to one channel (K3) without norm or activation.
+    At res 128 and nf 512 the last layer is 32 -> 1 at 64³ -> 128³."""
+
+    def __init__(self, n_dims: int = 200, nf: int = 512, res: int = 128):
+        super().__init__()
+        self.n_dims = n_dims
+        self.stages = stages = int(math.log2(res // 4))
+        self.Deconv3D_0 = Deconv3D(n_dims, nf, 4, 1, 0)
+        self.BatchNorm_0 = batch_norm(nf, 3)
+        width = nf
+        for i in range(1, stages):
+            setattr(self, f"Deconv3D_{i}", Deconv3D(width, width // 2, 4, 2,
+                                                    1))
+            setattr(self, f"BatchNorm_{i}", batch_norm(width // 2, 3))
+            width //= 2
+        setattr(self, f"Deconv3D_{stages}", Deconv3D(width, 1, 4, 2, 1))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = z.reshape(z.shape[0], self.n_dims, 1, 1, 1)
+        for i in range(self.stages):
+            x = getattr(self, f"Deconv3D_{i}")(x)
+            x = F.relu(getattr(self, f"BatchNorm_{i}")(x))
+        return getattr(self, f"Deconv3D_{self.stages}")(x)[:, 0]
+
+
+class VoxelGenerator(nn.Module):
+    """Noise (N, nz) -> (N, res, res, res) in (0, 1): nz -> 8 nf at 4³,
+    then 2x deconvs to nf (at res 128 one more nf -> nf stage), each with
+    BatchNorm + ReLU, and a last 2x deconv to one channel (K3), then a
+    sigmoid.  No layer has a bias.  At res 128 and nf 64 the last layer
+    is 64 -> 1 at 64³ -> 128³."""
+
+    WIDTHS = {128: (4, 2, 1, 1), 64: (4, 2, 1), 32: (2, 1)}
+
+    def __init__(self, nz: int = 200, nf: int = 64, res: int = 128):
+        super().__init__()
+        self.nz = nz
+        widths = [nf * 8] + [nf * m for m in self.WIDTHS[res]]
+        self.n_mid = len(widths)
+        self.Deconv3D_0 = Deconv3D(nz, widths[0], 4, 1, 0, use_bias=False)
+        self.BatchNorm_0 = batch_norm(widths[0], 3)
+        for i in range(1, self.n_mid):
+            setattr(self, f"Deconv3D_{i}", Deconv3D(
+                widths[i - 1], widths[i], 4, 2, 1, use_bias=False))
+            setattr(self, f"BatchNorm_{i}", batch_norm(widths[i], 3))
+        setattr(self, f"Deconv3D_{self.n_mid}", Deconv3D(
+            widths[-1], 1, 4, 2, 1, use_bias=False))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = z.reshape(z.shape[0], self.nz, 1, 1, 1)
+        for i in range(self.n_mid):
+            x = getattr(self, f"Deconv3D_{i}")(x)
+            x = F.relu(getattr(self, f"BatchNorm_{i}")(x))
+        return torch.sigmoid(getattr(self, f"Deconv3D_{self.n_mid}")(x)[:, 0])
+
+
+class VoxelDiscriminator(nn.Module):
+    """(N, res, res, res) -> (N,) Wasserstein critic scores: k4 s2 p1
+    convolutions with LeakyReLU(0.2), no norm and no bias (at res 128 an
+    extra nf -> nf stage after the first), then a k4 VALID convolution
+    from 4³ to one score."""
+
+    WIDTHS = {128: (1, 1, 2, 4, 8), 64: (1, 2, 4, 8), 32: (1, 2, 4)}
+
+    def __init__(self, nf: int = 64, res: int = 128):
+        super().__init__()
+        widths = [nf * m for m in self.WIDTHS[res]]
+        self.n_mid = len(widths)
+        cin = 1
+        for i, w in enumerate(widths):
+            setattr(self, f"Conv3D_{i}", Conv3D(cin, w, 4, 2, 1,
+                                                use_bias=False))
+            cin = w
+        setattr(self, f"Conv3D_{self.n_mid}", Conv3D(cin, 1, 4, 1, 0,
+                                                     use_bias=False))
+
+    def forward(self, v: torch.Tensor) -> torch.Tensor:
+        x = v[:, None]
+        for i in range(self.n_mid):
+            x = F.leaky_relu(getattr(self, f"Conv3D_{i}")(x), 0.2)
+        return getattr(self, f"Conv3D_{self.n_mid}")(x).reshape(v.shape[0])

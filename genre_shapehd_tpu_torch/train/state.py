@@ -1,9 +1,12 @@
 """A model's training state in the JAX package's checkpoint layout
 (counterpart of ``genre_shapehd_tpu/train/state.py``).
 
-The port's state is the model's net and its ``torch.optim.Adam``.  In a
-checkpoint the net is the JAX package's ``params`` / ``batch_stats``
-trees (``core/convert.py``), so either package's ``cli.test`` reads it.
+The port's state is the model's nets (``net_modules``: one for most
+models, ``net_g`` and ``net_d`` for WGAN-GP, ``net``, ``net_noft`` and
+``net_d`` for ShapeHD), their ``torch.optim.Adam``s (``optimizer_entries``)
+and ``extra_state`` (WGAN-GP's ``last_err_g``).  In a checkpoint each net
+is the JAX package's ``params`` / ``batch_stats`` trees
+(``core/convert.py``), so either package's ``cli.test`` reads it.
 Adam's moments cross as trees in the same parameter layout, transposed
 taps flipped, so that a step after a resume is the step the JAX package
 would take:
@@ -96,28 +99,63 @@ def load_adam_state(optimizer: torch.optim.Adam, net: torch.nn.Module,
             "exp_avg_sq": nu_sd[name].to(p.device, p.dtype).reshape(p.shape)}
 
 
+def _to_numpy(tree: Any) -> Any:
+    """Tensors of a (nested) dict as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
 def state_to_reference_payload(model, epoch: int,
                                loss_eval: float) -> Dict[str, Any]:
-    """A model's net and Adam state in the reference checkpoint layout."""
-    params, stats = torch_to_jax(model.net.state_dict())
+    """A model's nets and Adam states in the reference checkpoint layout,
+    in the order of its ``net_names`` and ``optimizer_names``, and its
+    ``extra_state`` (WGAN-GP's ``last_err_g``)."""
+    nets = model.net_modules()
+    entries = model.optimizer_entries()
+    payload_nets = []
+    for name in model.net_names:
+        params, stats = torch_to_jax(nets[name].state_dict())
+        payload_nets.append({"params": params, "batch_stats": stats})
     return {
-        "nets": [{"params": params, "batch_stats": stats}],
-        "optimizers": [adam_state_to_jax(model.optimizer, model.net)],
+        "nets": payload_nets,
+        "optimizers": [adam_state_to_jax(*entries[name])
+                       for name in model.optimizer_names],
         "epoch": epoch,
         "loss_eval": loss_eval,
-        "extra": {},
+        "extra": _to_numpy(model.extra_state()),
         "net_names": list(model.net_names),
         "opt_names": list(model.optimizer_names),
     }
 
 
+def load_nets(payload: Dict[str, Any], model) -> None:
+    """Each net of a checkpoint of either package into the model's net of
+    the same name (the payload's ``net_names``, else the model's order);
+    a net the payload lacks keeps its weights."""
+    nets = model.net_modules()
+    names = payload.get("net_names") or []
+    if not set(names) <= set(nets):
+        names = list(model.net_names)
+    for name, net in zip(names, payload["nets"]):
+        nets[name].load_state_dict(jax_to_torch(
+            net["params"], net.get("batch_stats") or {}))
+
+
 def reference_payload_to_state(payload: Dict[str, Any], model) -> None:
-    """Load a checkpoint of either package into ``model``: the net's
-    weights and statistics, and Adam's moments where it has them (the
-    options' learning rate and betas stay the current ones)."""
-    net = payload["nets"][0]
-    model.net.load_state_dict(jax_to_torch(net["params"],
-                                           net.get("batch_stats") or {}))
-    found = adam_moments(payload.get("optimizers") or ())
-    if found is not None:
-        load_adam_state(model.optimizer, model.net, *found)
+    """Load a checkpoint of either package into ``model``: the nets'
+    weights and statistics, Adam's moments where it has them (the
+    options' learning rate and betas stay the current ones), and
+    ``extra``."""
+    load_nets(payload, model)
+    entries = model.optimizer_entries()
+    names = payload.get("opt_names") or []
+    if not set(names) <= set(entries):
+        names = list(model.optimizer_names)
+    for name, entry in zip(names, payload.get("optimizers") or ()):
+        found = adam_moments(entry)
+        if found is not None:
+            load_adam_state(*entries[name], *found)
+    model.load_extra_state(payload.get("extra") or {})

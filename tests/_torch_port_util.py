@@ -4,8 +4,9 @@ Seeded numpy inputs feed both the JAX package and the port.  Random
 weights put net1's depth and net2's spherical map far outside the unit
 cube, which would leave both backprojections empty; :func:`calibrate`
 rescales three output layers so that the geometry between the nets sees
-many points inside the cube.  :func:`exact_flax_variance` and
-:func:`grad_agreement` serve the train-step tests.
+many points inside the cube.  :func:`exact_flax_variance`,
+:func:`grad_agreement`, :func:`jax_step` and :func:`check_step` serve
+the train-step tests.
 """
 
 from __future__ import annotations
@@ -68,6 +69,87 @@ def grad_agreement(net, ref_grads, prefix):
                                                * norms[n]))
         ratio_err = max(ratio_err, abs(np.linalg.norm(g) / norms[n] - 1))
     return cos_min, ratio_err, stray
+
+
+def release_memory():
+    """Let go of what a test module leaves behind in its worker: JAX's
+    compiled programs, unreachable objects, and the C heap's free pages
+    (glibc keeps them otherwise: ~3.5 GB after the MarrNet tests)."""
+    import ctypes
+    import gc
+    import jax
+    jax.clear_caches()
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):      # not glibc
+        pass
+
+
+def to_np(tree):
+    import jax
+    return jax.tree.map(np.asarray, tree)
+
+
+def f64(tree):
+    import jax
+    return jax.tree.map(lambda x: np.asarray(x, np.float64), tree)
+
+
+def jax_step(jm, state, batch, dtype="float64"):
+    """JAX's loss terms, gradients, predictions and new BatchNorm
+    statistics of one train step at ``state`` (``jm._loss(params,
+    batch_stats, batch, train)``), with Flax's two-pass batch variance, in
+    ``dtype`` (``jm``'s net cloned to it).  float64 for GenRe's nets: at
+    64² JAX's own float32 rounding moves a small gradient tensor of
+    MarrNet-1 by 1.5 % of its norm, the port's float32 by 0.07 %, while
+    both packages agree to 2e-8 in float64
+    (``tools/probe_grad_precision.py``).  XLA's CPU convolutions in
+    float64 take 25 s for MarrNet-2's step, which float32 holds as
+    closely as the tests need."""
+    import jax
+    import jax.numpy as jnp
+    cast = f64 if dtype == "float64" else to_np
+    jm.net = jm.net.clone(dtype=getattr(jnp, dtype))
+    with jax.enable_x64(dtype == "float64"), exact_flax_variance():
+        grads, (loss, stats, pred) = jax.jit(
+            jax.grad(jm._loss, has_aux=True), static_argnums=3)(
+                cast(state.params["net"]), cast(state.batch_stats["net"]),
+                cast(batch), True)
+        return to_np(dict(grads=grads, loss=loss, stats=stats, pred=pred))
+
+
+def check_step(net, ref, before, got, lr, bounds):
+    """Loss terms (rtol 1e-4), gradients per tensor under each prefix of
+    ``bounds`` (cosine, norm-ratio bounds; None: exactly 0 in both),
+    BatchNorm statistics (2e-3 of their scale) and the first Adam step
+    (within 1e-6 lr + 2^-22 |p|) of ``net`` against the JAX step
+    ``ref``."""
+    from genre_shapehd_tpu_torch.core.convert import jax_to_torch
+    assert sorted(got) == sorted(ref["loss"])
+    for k, v in ref["loss"].items():
+        np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-4,
+                                   err_msg=k)
+    ref_sd = jax_to_torch(ref["grads"], {})
+    for prefix, bound in bounds.items():
+        if bound is None:
+            for n, p in net.named_parameters():
+                if n.startswith(prefix):
+                    assert not p.grad.any() and not ref_sd[n].any(), n
+            continue
+        cos, ratio, stray = grad_agreement(net, ref["grads"], prefix)
+        assert cos >= bound[0] and ratio <= bound[1], (prefix, cos, ratio)
+        assert stray <= 1e-4, (prefix, stray)
+    sd = net.state_dict()
+    for k, v in jax_to_torch({}, ref["stats"]).items():
+        if "running_" in k:
+            scale = float(v.abs().max()) + 1e-6
+            err = float((sd[k] - v).abs().max()) / scale
+            assert err <= 2e-3, (k, err)
+    for k, p in net.named_parameters():
+        step = -lr * p.grad / (p.grad.abs() + 1e-8)
+        slack = 1e-6 * lr + 2.0 ** -22 * before[k].abs()
+        assert bool(((sd[k] - before[k] - step).abs() <= slack).all()), k
 
 
 def _get(tree, path):
@@ -145,3 +227,77 @@ def decode_records(rec: torch.Tensor, dtype: torch.dtype,
     return {"z_lo": (u[..., 0] & 0xFFFF).astype(np.int32),
             "m_lo": (u[..., 0] >> 16).astype(np.int32),
             "z_w": halves(u[..., 1]), "m_w": halves(u[..., 2])}
+
+
+def procedural_batch(jm, tm, n):
+    """The first ``n`` training samples of each package's procedural
+    dataset (the same scenes), collated, as arrays; they must be equal."""
+    from genre_shapehd_tpu.data import procedural as jax_procedural
+    from genre_shapehd_tpu.data.loader import collate as jax_collate
+    from genre_shapehd_tpu_torch.core.registry import get_dataset
+    from genre_shapehd_tpu_torch.data.loader import collate
+    out = []
+    for pkg, model, make in ((jax_procedural.Dataset, jm, jax_collate),
+                             (get_dataset("procedural"), tm, collate)):
+        ds = pkg(model.opt, "train", model=model)
+        b = make([ds[i] for i in range(n)])
+        out.append({k: v for k, v in b.items() if isinstance(v, np.ndarray)})
+    ref, got = out
+    assert sorted(got) == sorted(ref)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    return got
+
+
+def save_jax_state(path, jm, state, epoch=0, loss_eval=0.0,
+                   with_optimizers=True):
+    """``state`` as the JAX ``Trainer`` checkpoints it (without the
+    optimizers' states unless ``with_optimizers``)."""
+    from genre_shapehd_tpu.core.checkpoint import save_checkpoint
+    from genre_shapehd_tpu.train.state import state_to_reference_payload
+    save_checkpoint(path, state_to_reference_payload(
+        state, jm.net_names, jm.optimizer_names if with_optimizers else [],
+        epoch, loss_eval))
+
+
+def photo(h, w, seed):
+    """A shaded ellipsoid on white, and its mask (uint8)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    cy, cx = rng.uniform(0.4, 0.6) * h, rng.uniform(0.4, 0.6) * w
+    ry, rx = rng.uniform(0.2, 0.35) * h, rng.uniform(0.2, 0.35) * w
+    u, v = (xx - cx) / rx, (yy - cy) / ry
+    inside = u * u + v * v < 1.0
+    nz = np.sqrt(np.clip(1.0 - u * u - v * v, 0.0, 1.0))
+    light = np.array([-0.4, -0.5, 0.77])
+    shade = np.clip(-u * light[0] - v * light[1] + nz * light[2], 0, 1)
+    color = rng.uniform(0.2, 0.9, 3)
+    rgb = np.where(inside[..., None], (0.15 + 0.85 * shade)[..., None]
+                   * color, 1.0)
+    return ((rgb * 255).round().astype(np.uint8),
+            (inside * 255).astype(np.uint8))
+
+
+def write_photos(d, n):
+    """``n`` photos ``NN_rgb.png`` and masks ``NN_silhouette.png``."""
+    import os
+    from genre_shapehd_tpu_torch.data import png
+    os.makedirs(d)
+    for i in range(n):
+        rgb, mask = photo(90 + 7 * i, 120 - 5 * i, 100 + i)
+        png.write_png(os.path.join(d, f"{i:02d}_rgb.png"), rgb)
+        png.write_png(os.path.join(d, f"{i:02d}_silhouette.png"), mask)
+
+
+def jax_test_outputs(net, opt, out_dir):
+    """The JAX package's ``ModelTest.test_on_batch`` over the test set of
+    ``opt`` (its ``input_rgb`` / ``input_mask``; ``vis_workers`` 0), into
+    ``out_dir``."""
+    from genre_shapehd_tpu.core.registry import get_dataset, get_model
+    from genre_shapehd_tpu.data.loader import DataLoader
+    opt.output_dir = out_dir
+    mt = get_model(net, test=True)(opt)
+    ds = get_dataset("test")(opt, model=mt)
+    for i, batch in enumerate(DataLoader(ds, opt.batch_size, shuffle=False,
+                                         num_workers=2, drop_last=False)):
+        mt.test_on_batch(i, batch)

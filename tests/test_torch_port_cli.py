@@ -23,28 +23,10 @@ from genre_shapehd_tpu_torch.cli import test as port_cli
 from genre_shapehd_tpu_torch.data import png
 from genre_shapehd_tpu_torch.data import preprocess as tpp
 
-from _torch_port_util import TINY, calibrate, scene_inputs
+from _torch_port_util import TINY, calibrate, photo, scene_inputs
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _photo(h, w, seed):
-    """A shaded ellipsoid on white, and its mask (uint8)."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[:h, :w].astype(np.float64)
-    cy, cx = rng.uniform(0.4, 0.6) * h, rng.uniform(0.4, 0.6) * w
-    ry, rx = rng.uniform(0.2, 0.35) * h, rng.uniform(0.2, 0.35) * w
-    u, v = (xx - cx) / rx, (yy - cy) / ry
-    inside = u * u + v * v < 1.0
-    nz = np.sqrt(np.clip(1.0 - u * u - v * v, 0.0, 1.0))
-    light = np.array([-0.4, -0.5, 0.77])
-    shade = np.clip(-u * light[0] - v * light[1] + nz * light[2], 0, 1)
-    color = rng.uniform(0.2, 0.9, 3)
-    rgb = np.where(inside[..., None], (0.15 + 0.85 * shade)[..., None]
-                   * color, 1.0)
-    return ((rgb * 255).round().astype(np.uint8),
-            (inside * 255).astype(np.uint8))
 
 
 def _write_filtered_png(path, img, ftype):
@@ -73,7 +55,7 @@ def _write_filtered_png(path, img, ftype):
 
 @pytest.mark.parametrize("filter_type", [0, 1, 2, 3, 4])
 def test_png_roundtrip_against_cv2(tmp_path, filter_type):
-    rgb, mask = _photo(37, 53, filter_type)
+    rgb, mask = photo(37, 53, filter_type)
     rgba = np.concatenate([rgb, mask[..., None]], -1)
     for name, img in (("rgb", rgb), ("gray", mask), ("rgba", rgba)):
         path = str(tmp_path / f"{name}.png")
@@ -98,7 +80,7 @@ def test_png_roundtrip_against_cv2(tmp_path, filter_type):
 
 
 def test_crop_and_resize_match_cv2():
-    rgb, mask = _photo(150, 200, 7)
+    rgb, mask = photo(150, 200, 7)
     im, m = rgb / 255.0, mask / 255.0
     bbox = jpp.get_bbox(m, 0.95)
     assert tpp.get_bbox(m, 0.95) == bbox
@@ -121,7 +103,7 @@ def test_crop_and_resize_match_cv2():
 def _write_photos(d, n):
     os.makedirs(d)
     for i in range(n):
-        rgb, mask = _photo(90 + 7 * i, 120 - 5 * i, 100 + i)
+        rgb, mask = photo(90 + 7 * i, 120 - 5 * i, 100 + i)
         _write_filtered_png(os.path.join(d, f"{i:02d}_rgb.png"), rgb, i % 5)
         png.write_png(os.path.join(d, f"{i:02d}_silhouette.png"), mask)
 

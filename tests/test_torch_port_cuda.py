@@ -102,27 +102,43 @@ def test_cuda_tensor_never_falls_back(device):
                   64, torch.float32)
 
 
-@pytest.mark.parametrize("dtype,b,cin,s", [
-    ("float32", 2, 12, 16), ("float32", 1, 3, 5), ("bfloat16", 2, 40, 16),
-    ("bfloat16", 1, 7, 9), ("float32", 1, 7, 9), ("bfloat16", 1, 3, 5),
-    ("bfloat16", 2, 40, 33), ("float32", 2, 40, 33), ("bfloat16", 1, 20, 24),
-    ("bfloat16", 2, 40, 64), ("bfloat16", 1, 5, 72), ("float32", 8, 40, 64),
-    ("float32", 1, 1, 1), ("float32", 1, 3, 66), ("float32", 1, 300, 8),
-    ("bfloat16", 1, 300, 16), ("bfloat16", 2, 6, 66)])
-def test_deconv_final_matches_plain(device, dtype, b, cin, s):
+@pytest.mark.parametrize("dtype,b,cin,s,bias", [
+    ("float32", 2, 12, 16, 0.3), ("float32", 1, 3, 5, 0.3),
+    ("bfloat16", 2, 40, 16, 0.3), ("bfloat16", 1, 7, 9, 0.3),
+    ("float32", 1, 7, 9, 0.3), ("bfloat16", 1, 3, 5, 0.3),
+    ("bfloat16", 2, 40, 33, 0.3), ("float32", 2, 40, 33, 0.3),
+    ("bfloat16", 1, 20, 24, 0.3), ("bfloat16", 2, 40, 64, 0.3),
+    ("bfloat16", 1, 5, 72, 0.3), ("float32", 8, 40, 64, 0.3),
+    ("float32", 1, 1, 1, 0.3), ("float32", 1, 3, 66, 0.3),
+    ("float32", 1, 300, 8, 0.3), ("bfloat16", 1, 300, 16, 0.3),
+    ("bfloat16", 2, 6, 66, 0.3),
+    # MarrNet-2's decoder (a bias) and the WGAN-GP generator (none)
+    ("bfloat16", 8, 32, 64, 0.3), ("float32", 8, 32, 64, 0.3),
+    ("bfloat16", 4, 64, 64, None), ("float32", 4, 64, 64, None)])
+def test_deconv_final_matches_plain(device, dtype, b, cin, s, bias):
     """K3 against its plain version: bf16 on the tensor cores where S is
-    a multiple of 8 up to 64 and Cin <= 288 (16, 24, 64; Cin padded to
+    a multiple of 8 up to 64 and Cin <= 288 (16, 24, 32, 64; Cin padded to
     16), else (S = 5, 9, 33, 66, 72; Cin = 300) and in float32 (dec6's
-    (8, 40, 64^3) and S = 1 too) on the CUDA cores: staged by TMA where a
+    (8, 40, 64^3), MarrNet-2's decoder (8, 32, 64^3), the generator's
+    (4, 64, 64^3) and S = 1 too) on the CUDA cores: staged by TMA where a
     row of x is whole 16-byte units, by plain loads where it is not (S =
-    1, 5, 9, 33, 66 in float32; 5, 9, 33, 66 in bf16)."""
+    1, 5, 9, 33, 66 in float32; 5, 9, 33, 66 in bf16).  A layer without a
+    bias hands K3 a zero one.
+
+    float32: within 1e-5 of the scale of the plain version.  bf16, by
+    ``chip_smoke.k3_bf16_within``: within 1 u (2^-8 of the largest
+    magnitude) of the float32 result on the inputs as the kernel reads
+    them, at every shape; within 1e-2 (max) and 1e-3 (mean) of the scale
+    of cuDNN's bf16 plain version, a bound waived only where that plain
+    version itself lies beyond 1.5 u of the float32 result."""
+    from chip_smoke import k3_bf16_within
     cd = getattr(torch, dtype)
     rng = np.random.default_rng(s)
     x = torch.from_numpy(rng.standard_normal((b, cin, s, s, s)).astype(
         np.float32)).to(device, cd)
     w = torch.from_numpy((rng.standard_normal((cin, 1, 4, 4, 4)) * 0.2)
                          .astype(np.float32)).to(device)
-    bias = torch.tensor([0.3], device=device)
+    bias = torch.tensor([0.0 if bias is None else bias], device=device)
     sk.reset_launches()
     out = sk.deconv_final(x, w, bias)
     torch.cuda.synchronize()
@@ -134,16 +150,14 @@ def test_deconv_final_matches_plain(device, dtype, b, cin, s):
     if dtype == "float32":
         # summation order only
         assert d.max() <= 1e-5 * scale, (d.max(), scale)
-    else:
-        # one bf16 rounding of the output (the plain version also rounds
-        # the bias)
-        assert d.max() <= 1e-2 * scale and d.mean() <= 1e-3 * scale
-        # half a bf16 step from the float32 result on the inputs as the
-        # kernel reads them (2^-8 of the scale bounds it)
-        exact = torch.nn.functional.conv_transpose3d(
-            x.float(), w.to(cd).float(), bias, stride=2, padding=1)
-        e = float((out.float() - exact).abs().max())
-        assert e <= 2.0 ** -8 * float(exact.abs().max()), e
+        return
+    exact = torch.nn.functional.conv_transpose3d(
+        x.float(), w.to(cd).float(), bias, stride=2, padding=1)
+    e = float((out.float() - exact).abs().max())
+    e_plain = float((ref - exact).abs().max())
+    ok, waived = k3_bf16_within(float(d.max()), float(d.mean()), e, e_plain,
+                                scale, float(exact.abs().max()))
+    assert ok, (float(d.max()), float(d.mean()), e, e_plain, scale, waived)
 
 
 @pytest.mark.parametrize("dtype,b,cin,s,kernel", [

@@ -7,7 +7,7 @@ flags, ``pack_output``, ``--net1_path`` with checkpoints of either
 package, and the three stages chained through ``cli.train``.
 
 The JAX reference of a train step runs in float64 with Flax's two-pass
-batch variance (``_jax_step``); the port in float32, held to the
+batch variance (``jax_step``); the port in float32, held to the
 tolerances of ``tests/test_torch_port_train.py``.
 """
 
@@ -19,7 +19,6 @@ import subprocess
 import sys
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -40,7 +39,7 @@ from genre_shapehd_tpu_torch.data.loader import collate
 from genre_shapehd_tpu_torch.models.base import default_opt
 from genre_shapehd_tpu_torch.train.loop import Trainer
 
-from _torch_port_util import calibrate, exact_flax_variance, grad_agreement
+from _torch_port_util import calibrate, check_step, jax_step
 
 torch.set_num_threads(4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,62 +88,12 @@ def _batches(jm, tm):
     return got
 
 
-def _jax_step(jm, state, batch):
-    """JAX's loss terms, gradients, predictions and new BatchNorm
-    statistics of one train step at ``state``, in float64 (``jm``'s net
-    cloned to that dtype): at this size JAX's own float32 rounding moves a
-    small gradient tensor of MarrNet-1 by 1.5 % of its norm, the port's
-    float32 by 0.07 %, while both packages agree to 2e-8 in float64
-    (``tools/probe_grad_precision.py``)."""
-    def f64(tree):
-        return jax.tree.map(lambda x: np.asarray(x, np.float64), tree)
-    jm.net = jm.net.clone(dtype=jnp.float64)
-    with jax.enable_x64(), exact_flax_variance():
-        grads, (loss, stats, pred) = jax.jit(
-            jax.grad(jm._loss, has_aux=True), static_argnums=3)(
-                f64(state.params["net"]), f64(state.batch_stats["net"]),
-                f64(batch), True)
-        return _to_np(dict(grads=grads, loss=loss, stats=stats, pred=pred))
-
-
-def _check_step(tm, ref, before, got, bounds):
-    """Loss terms (rtol 1e-4), gradients per tensor under each prefix of
-    ``bounds`` (cosine, norm-ratio bounds; None: exactly 0 in both),
-    BatchNorm statistics (2e-3 of their scale) and the Adam step (within
-    1e-6 lr + 2^-22 |p|) against the JAX step ``ref``."""
-    assert sorted(got) == sorted(ref["loss"])
-    for k, v in ref["loss"].items():
-        np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-4,
-                                   err_msg=k)
-    net = tm.net
-    ref_sd = jax_to_torch(ref["grads"], {})
-    for prefix, bound in bounds.items():
-        if bound is None:
-            for n, p in net.named_parameters():
-                if n.startswith(prefix):
-                    assert not p.grad.any() and not ref_sd[n].any(), n
-            continue
-        cos, ratio, stray = grad_agreement(net, ref["grads"], prefix)
-        assert cos >= bound[0] and ratio <= bound[1], (prefix, cos, ratio)
-        assert stray <= 1e-4, (prefix, stray)
-    sd = net.state_dict()
-    for k, v in jax_to_torch({}, ref["stats"]).items():
-        if "running_" in k:
-            scale = float(v.abs().max()) + 1e-6
-            err = float((sd[k] - v).abs().max()) / scale
-            assert err <= 2e-3, (k, err)
-    for k, p in net.named_parameters():
-        step = -LR * p.grad / (p.grad.abs() + 1e-8)
-        slack = 1e-6 * LR + 2.0 ** -22 * before[k].abs()
-        assert bool(((sd[k] - before[k] - step).abs() <= slack).all()), k
-
-
 @functools.lru_cache(maxsize=2)
 def _marrnet1(minmax):
     jm, tm = _models("marrnet1", pred_depth_minmax=minmax)
     state = jm.init_state(jax.random.PRNGKey(0))
     batch = _batches(jm, tm)
-    return jm, tm, state, batch, _jax_step(jm, state, batch)
+    return jm, tm, state, batch, jax_step(jm, state, batch)
 
 
 @pytest.mark.parametrize("minmax", [False, True])
@@ -156,7 +105,7 @@ def test_marrnet1_train_step_matches_jax(minmax):
     before = {k: v.clone() for k, v in tm.net.state_dict().items()}
     got = tm.train_step(batch)
     assert ("depth_minmax" in got) == minmax
-    _check_step(tm, ref, before, got, {"": (0.999, 0.01)})
+    check_step(tm.net, ref, before, got, LR, {"": (0.999, 0.01)})
 
 
 @pytest.mark.parametrize("net,flags", [
@@ -202,7 +151,7 @@ def _stage2():
                               batch["rgb"], batch["silhou"], cfg=STAGED,
                               stage2=True)
     state = state.replace(params={"net": params})
-    return jm, tm, params, stats, batch, _jax_step(jm, state, batch)
+    return jm, tm, params, stats, batch, jax_step(jm, state, batch)
 
 
 def test_depth_inpaint_train_step_matches_jax():
@@ -215,7 +164,8 @@ def test_depth_inpaint_train_step_matches_jax():
     assert ref["pred"]["proj_depth"].max() > -49.0      # points in the cube
     before = {k: v.clone() for k, v in tm.net.state_dict().items()}
     got = tm.train_step(batch)
-    _check_step(tm, ref, before, got, {"net1.": None, "net2.": (0.995, 0.03)})
+    check_step(tm.net, ref, before, got, LR,
+               {"net1.": None, "net2.": (0.995, 0.03)})
     sd = tm.net.state_dict()
     for k, v in before.items():
         if k.startswith("net1."):

@@ -44,6 +44,7 @@ from genre_shapehd_tpu.core.registry import get_model as jax_model
 from genre_shapehd_tpu.data.loader import collate as jax_collate
 from genre_shapehd_tpu.models.base import default_opt as jax_opt
 from genre_shapehd_tpu.ops.voxel import surface_from_solid_jax
+from genre_shapehd_tpu.parallel import mesh as pmesh
 from genre_shapehd_tpu.train.state import state_to_reference_payload
 from genre_shapehd_tpu_torch.core.checkpoint import load_checkpoint
 from genre_shapehd_tpu_torch.core.convert import jax_to_torch
@@ -54,7 +55,7 @@ from genre_shapehd_tpu_torch.nn.resnet import batch_norm
 from genre_shapehd_tpu_torch.ops.voxel import surface_from_solid
 from genre_shapehd_tpu_torch.train import state as tstate
 
-from _torch_port_util import TINY, calibrate, scene_inputs
+from _torch_port_util import TINY, calibrate, release_memory, scene_inputs
 from _torch_port_util import exact_flax_variance as _exact_flax_variance
 from _torch_port_util import grad_agreement as _grad_agreement
 
@@ -66,6 +67,15 @@ TOY = dict(im_size=16, vox_res=8, sph_res=8, z_res=16, padding_margin=2)
 #: input (sph_res + 2 * margin); batch 4 as in the configuration
 BATCH = 4
 LR = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_memory_at_the_end():
+    """At the end, the module's cached JAX steps and the memory they held
+    are let go (a test worker runs other files after this one)."""
+    yield
+    _jax_steps.cache_clear()
+    release_memory()
 
 
 def _to_np(tree):
@@ -421,7 +431,9 @@ def test_jax_trainer_resumes_a_port_checkpoint(tmp_path, wdecay):
     path = str(tmp_path / "checkpoint.pt")
     Trainer(tm, tm.opt).save(path, 2, 0.7)
 
-    trainer = JaxTrainer(jm, jm.opt)
+    # on one of the 8 virtual CPU devices: replicated on all 8, GenRe's
+    # state with Adam's moments takes ~10 GB
+    trainer = JaxTrainer(jm, jm.opt, mesh=pmesh.make_mesh(jax.devices()[:1]))
     trainer.initialize(jax.random.PRNGKey(0))
     trainer.load(path)
     assert trainer.start_epoch == 2
