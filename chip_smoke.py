@@ -84,6 +84,24 @@ raising on failure:
     once / twice a batch, the .npz keys, the meshes); the ShapeHD
     checkpoint's held-out score (K4 once an item); a torch.profiler pass
     over one WGAN-GP and one ShapeHD step.
+ 9. GenRe's ShapeNet training path: a ShapeNet-layout tree written from
+    phase 7's scenes (two synsets, two views a model, 8-bit RGB, normal
+    and silhouette PNGs, 16-bit depth PNGs, rows filtered as libpng
+    chooses, .npy, .npz, .mat, a view without voxels), then the command lines of scripts/train_marrnet1.sh,
+    train_inpaint.sh (again with --exact_render), train_full_genre.sh and
+    finetune_genre_joint.sh (--resume -1 of stage 3), recorded from the
+    scripts, through ``cli.train --dataset shapenet`` at 256² -> 128³,
+    bfloat16, batch 4, with smaller epochs, one synset and the tree's
+    --data_root (--tensorboard where tensorboardX imports; elsewhere the
+    run with it must stop with an ImportError before its first step):
+    each dataset's views, finite losses, the launches of K1, K2, K3 and
+    K5 (none of K1, K2 under --exact_render), which nets moved (the
+    frozen ones bit for bit), the eval visualizations and batch0000.npz,
+    step and data time, peak memory, the loader's and ``read_png``'s
+    host times (480², by row filter); then the exact renderer against
+    K1 + K2 on four of phase 7's solids at 128³, batch 4, float32 and
+    bf16, within a mean of 0.01 and a maximum of 0.1 (the JAX package's
+    bounds), with both times and the exact renderer's peak memory.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Scratch files go to build/chip_smoke/ under the repository.
@@ -1455,7 +1473,8 @@ def phase_train(device, work):
             "--epoch_batches", str(steps), "--eval_batches", "1",
             "--synthetic_length", str(2 * b), "--workers", "4",
             "--logdir", logdir, "--log_time", "--log_batch",
-            "--manual_seed", "0", "--save_net", "0", "--device", "cuda"]
+            "--manual_seed", "0", "--save_net", "0", "--vis_batches_vali",
+            "0", "--device", "cuda"]
     # the weights cli.train starts from: the seeded init, made on the CPU
     start = get_model("genre_full_model")(default_opt(device="cpu"))
     start.init_state(0)
@@ -1595,7 +1614,7 @@ def phase_staged(device, work):
             "--epoch_batches", str(steps), "--eval_batches", "1",
             "--workers", "4", "--logdir", logdir, "--log_time",
             "--log_batch", "--manual_seed", "0", "--save_net", "0",
-            "--device", "cuda"]
+            "--vis_batches_vali", "0", "--device", "cuda"]
     run = lambda net, lr: os.path.join(                       # noqa: E731
         logdir, f"{net}_procedural_{lr}", "0")
     d1, d2, d3 = (run("marrnet1", 0.001),
@@ -1851,7 +1870,7 @@ def phase_family(device, work, marrnet1_ckpt):
             "--epoch_batches", str(steps), "--eval_batches", "1",
             "--workers", "4", "--logdir", logdir, "--log_time",
             "--log_batch", "--manual_seed", "0", "--save_net", "0",
-            "--device", "cuda"]
+            "--vis_batches_vali", "0", "--device", "cuda"]
     run = lambda net, lr, expr="0": os.path.join(            # noqa: E731
         logdir, f"{net}_procedural_{lr}", expr)
     dA, dB, dB2, dC, dD = (run("marrnet2", 0.001), run("wgangp", 0.0001),
@@ -2059,6 +2078,373 @@ def phase_family(device, work, marrnet1_ckpt):
     return runs
 
 
+#: phase 9: the synsets of the ShapeNet-layout tree (the first is trained
+#: on), its train and vali scenes of each, the index of the train view
+#: without voxels, and the steps of the scripts' stages (the joint
+#: fine-tune's fewer)
+SHAPENET = dict(classes=("03001627", "02958343"), train=(20, 12),
+                vali=(12, 4), no_voxel=5, steps=4, joint_steps=2)
+
+
+def shapenet_tree_module():
+    """``tests/_shapenet_tree.py`` (the tree writer and the scripts'
+    command-line recorder that the tests use; no JAX), loaded from its
+    file, so that ``tests/`` never joins the import path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_shapenet_tree", os.path.join(ROOT, "tests", "_shapenet_tree.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_tree(root):
+    """Phase 7's procedural scenes (still in this process's memory) as a
+    ShapeNet-layout tree: each synset's models with two views, one train
+    view of the first synset without voxels; PNG rows filtered as libpng
+    chooses.  Returns the seconds it took."""
+    from genre_shapehd_tpu_torch.data import procedural
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    t0 = time.perf_counter()
+    opt = default_opt(device="cpu",
+                      procedural_length=TRAIN["batch"] * TRAIN["steps"])
+    items = []
+    for mode, counts in (("train", SHAPENET["train"]),
+                         ("vali", SHAPENET["vali"])):
+        ds, i = procedural.Dataset(opt, mode), 0
+        for synset, n in zip(SHAPENET["classes"], counts):
+            for k in range(n):
+                model = f"{mode[0]}{k // 2:02d}"
+                no_voxel = mode == "train" and i == SHAPENET["no_voxel"]
+                items.append(dict(
+                    item=f"{synset}/{model}/{model}_view{k % 2:03d}",
+                    train=mode == "train", sample=ds._raw(i),
+                    missing=("voxel",) if no_voxel else ()))
+                i += 1
+    shapenet_tree_module().write_shapenet_tree(root, items)
+    return time.perf_counter() - t0
+
+
+def run_captured(fn, *args):
+    """``fn(*args)`` with its standard output captured: (its result, or
+    the exception it raised, and the output)."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args), buf.getvalue()
+    except Exception as e:                     # the caller checks it
+        return e, buf.getvalue()
+
+
+def phase_shapenet(work):
+    """GenRe's ShapeNet training path as ``scripts/train_*.sh`` run it: a
+    ShapeNet-layout tree from phase 7's scenes, then each script's own
+    command line (recorded from the script) through ``cli.train`` at full
+    width, bfloat16, batch 4: train_marrnet1.sh, train_inpaint.sh (and
+    again with --exact_render), train_full_genre.sh,
+    finetune_genre_joint.sh; smaller epochs, --logdir, one synset, the
+    tree's --data_root, --dtype bfloat16 and --log_batch added.  Returns
+    each stage's step time, data time, memory and launches."""
+    import torch
+    from genre_shapehd_tpu_torch.cli import train as cli_train
+    from genre_shapehd_tpu_torch.core.registry import get_model
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    script_argv = shapenet_tree_module().script_argv
+    cls = SHAPENET["classes"][0]
+    b, s, sj = TRAIN["batch"], SHAPENET["steps"], SHAPENET["joint_steps"]
+    root = os.path.join(work, "shapenet")
+    seconds = write_tree(root)
+    log(f"[shapenet] a ShapeNet-layout tree of {sum(SHAPENET['train'])} "
+        f"train and {sum(SHAPENET['vali'])} vali views (synsets "
+        f"{'+'.join(SHAPENET['classes'])}; 8-bit RGB, normal and "
+        f"silhouette PNGs, 16-bit depth PNGs, rows filtered as libpng "
+        f"chooses; .npy, .npz, .mat) from phase 7's scenes in "
+        f"{seconds:.1f} s")
+    logdir = os.path.join(work, "shapenet_logs")
+    small = ["--epoch", "1", "--epoch_batches", str(s), "--eval_batches",
+             "1", "--vis_batches_vali", "1", "--save_net", "1",
+             "--data_root", root, "--dtype", "bfloat16", "--manual_seed",
+             "0", "--log_batch", "--logdir", logdir]
+    run = lambda net, lr, top=logdir: os.path.join(          # noqa: E731
+        top, f"{net}_shapenet_{lr}_{cls}", "0")
+    d1, d2, d3 = (run("marrnet1", 0.001),
+                  run("depth_pred_with_sph_inpaint", 0.0001),
+                  run("genre_full_model", 0.0001))
+    d2x = run("depth_pred_with_sph_inpaint", 0.0001, logdir + "_exact")
+    ck = lambda d: os.path.join(d, "checkpoint.pt")          # noqa: E731
+    n_tr, n_va = SHAPENET["train"][0], SHAPENET["vali"][0]
+    # (stage, script, its variables, flags added, run dir, epoch, a loss
+    # term, train views, steps, launches of K1, K2, K5, K3): a forward
+    # renders (K1, K2) outside --exact_render, stage 3 runs dec6 (K3),
+    # the joint step also the renderer's backward (K1, K5); one eval
+    # batch each; the views without voxels and the car's are left out
+    stages = (
+        ("marrnet1", "train_marrnet1.sh", {}, [], d1, 1, "depth_minmax",
+         n_tr, s, (0, 0, 0, 0)),
+        ("inpaint", "train_inpaint.sh", {"NET1": ck(d1)}, [], d2, 1,
+         "spherical", n_tr, s, (s + 1, s + 1, 0, 0)),
+        ("inpaint_exact", "train_inpaint.sh", {"NET1": ck(d1)},
+         ["--exact_render", "--logdir", logdir + "_exact"], d2x, 1,
+         "spherical", n_tr, s, (0, 0, 0, 0)),
+        ("full", "train_full_genre.sh", {"INPAINT": ck(d2)}, [], d3, 1,
+         "voxel_loss", n_tr - 1, s, (s + 1, s + 1, 0, s + 1)),
+        # --resume -1 of stage 3's logdir: a second epoch
+        ("joint", "finetune_genre_joint.sh", {},
+         ["--epoch", "2", "--epoch_batches", str(sj)], d3, 2, "depth",
+         n_tr - 1, sj, (2 * sj + 1, sj + 1, sj, sj + 1)))
+
+    try:
+        import tensorboardX                                   # noqa: F401
+        tensorboard = True
+    except ImportError:
+        tensorboard = False
+    if not tensorboard:
+        # the scripts' --tensorboard stops a run before its first step
+        err, _ = run_captured(cli_train.main,
+                              script_argv("train_marrnet1.sh", cls) + small)
+        check(isinstance(err, ImportError) and "tensorboardX" in str(err)
+              and not os.path.exists(os.path.join(d1, "batch_loss.csv")),
+              f"--tensorboard without tensorboardX: {err!r}")
+        log(f"[shapenet] no tensorboardX on this machine: --tensorboard "
+            f"stops cli.train before its first step ({err}); the runs "
+            f"below leave the flag out")
+        shutil.rmtree(logdir, ignore_errors=True)
+
+    runs = {}
+    for name, script, env, extra, d, epoch, metric, n, steps, want in \
+            stages:
+        argv = script_argv(script, cls, env) + small + extra
+        if not tensorboard:
+            argv.remove("--tensorboard")
+        csv_path = os.path.join(d, "batch_loss.csv")
+        if os.path.exists(csv_path):
+            # the resumed run logs other loss terms: a file of its own
+            # (the logger appends under the first run's header)
+            os.replace(csv_path, csv_path + ".before_resume")
+        rk.reset_launches()
+        sk.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        rc, out = run_captured(cli_train.main, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {**rk.launches, **sk.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(rc == 0, f"cli.train {script} ({name}) returned {rc!r}; its "
+              f"output ends {out[-2000:]}")
+        counts = f"[setup] {n} train / {n_va} vali samples"
+        check(counts in out, f"{name}: {counts!r} not in its output")
+        k1, k2, k5, k3 = want
+        check(launches == {"render_stage1": k1, "render_stage2_scan": k2,
+                           "render_stage2_samples": k5, "deconv_final": k3},
+              f"{name}: launches {launches}")
+        rows = _csv_rows(csv_path)
+        check(len(rows) == steps, f"{name}: {len(rows)} logged steps")
+        terms = [k for k in rows[0] if k not in (
+            "epoch", "batch", "size", "batch_time", "data_time")]
+        check(metric in terms and all(np.isfinite(float(row[k]))
+                                      for row in rows for k in terms),
+              f"{name}: loss terms {terms} not all finite")
+        vis = os.path.join(d, f"epoch{epoch:04d}_vali")
+        with np.load(os.path.join(vis, "batch0000.npz")) as z:
+            check(all(np.isfinite(z[k]).all() for k in z.files),
+                  f"{name}: batch0000.npz not finite")
+            npz_keys = sorted(z.files)
+        drawn = sorted(os.listdir(vis))
+        check(len(drawn) > 1 and os.path.isfile(
+            os.path.join(d, "nets", f"{epoch:04d}.pt")),
+              f"{name}: drew {drawn}")
+        if tensorboard:
+            check(bool(glob.glob(os.path.join(d, "tensorboard",
+                                              "events.out.*"))),
+                  f"{name}: no TensorBoard event file")
+        times = [float(row["batch_time"]) for row in rows]
+        data = [float(row["data_time"]) for row in rows]
+        warm = 2 if steps > 2 else 1
+        runs[name] = dict(step_ms=statistics.median(times[warm:]) * 1e3,
+                          data_ms=statistics.median(data[warm:]) * 1e3,
+                          peak_gib=peak, held_gib=held, seconds=seconds,
+                          launches=launches, views=[n, n_va],
+                          loss=[round(float(r["loss"]), 4) for r in rows])
+        log(f"[shapenet] {script} ({name}): {n} train / {n_va} vali views; "
+            f"{steps} steps of batch {b}, bf16; loss {runs[name]['loss']}; "
+            f"step {runs[name]['step_ms']:.1f} ms (median of steps "
+            f"{warm + 1}..{steps}; first {times[0] * 1e3:.0f} ms); a "
+            f"batch's loading on the prefetch thread "
+            f"{runs[name]['data_ms']:.1f} ms; peak memory {peak:.2f} GiB "
+            f"({held:.2f} held before); {seconds:.1f} s wall with set-up; "
+            f"launches {launches}; epoch{epoch:04d}_vali: {len(drawn)} "
+            f"files, batch0000.npz {npz_keys}")
+
+    # which nets moved, against the seeded starts cli.train made (built on
+    # the CPU) or the checkpoint a stage started from; the frozen ones bit
+    # for bit, statistics included
+    def start(net, **kw):
+        model = get_model(net)(default_opt(device="cpu", **kw))
+        model.init_state(0)
+        return {k: v for k, v in model.net.state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+    s1, s2, s2x, s3, s4 = (_net_state(p) for p in (
+        ck(d1), ck(d2), ck(d2x), os.path.join(d3, "nets", "0001.pt"),
+        ck(d3)))
+    moved = {"marrnet1": _max_change(s1, start(
+        "marrnet1", pred_depth_minmax=True), "")}
+    init2 = start("depth_pred_with_sph_inpaint")
+    for name, st in (("inpaint", s2), ("inpaint_exact", s2x)):
+        for k, v in s1.items():
+            check(torch.equal(st["net1." + k], v),
+                  f"{name}: net1 differs from stage 1's checkpoint at {k}")
+        moved[name] = _max_change(st, init2, "net2.")
+    for k, v in s2.items():
+        # stage 3 runs net2 in train mode (its statistics move)
+        if "running_" not in k or k.startswith("net1."):
+            check(torch.equal(s3["depth_and_inpaint." + k], v),
+                  f"full: changed depth_and_inpaint.{k}")
+    moved["full"] = _max_change(s3, start("genre_full_model"), "refine_net.")
+    moved["joint"] = {p: _max_change(s4, s3, p) for p in (
+        "depth_and_inpaint.net1.", "depth_and_inpaint.net2.",
+        "refine_net.")}
+    check(all(v > 0 for k, v in moved.items() if k != "joint")
+          and all(v > 0 for v in moved["joint"].values()),
+          f"moved {moved}")
+    log(f"[shapenet] largest weight change: {json.dumps(moved)}; net1 of "
+        f"both stage-2 runs equal to stage 1's checkpoint and stage 3's "
+        f"depth_and_inpaint to stage 2's, statistics included")
+    runs["moved"] = moved
+    runs["loader"] = loader_times(root, cls)
+    runs["read_png"] = png_read_times(root, work)
+    for top in (logdir, logdir + "_exact", root):
+        shutil.rmtree(top, ignore_errors=True)
+    return runs
+
+
+def loader_times(root, cls):
+    """MarrNet-1's samples from the tree (files) and from phase 7's
+    scenes (memory), on this host's CPU: ms a sample on one thread, read
+    alone and read plus ``preprocess``; ms a batch of 4 from the
+    ``DataLoader`` on 4 threads (median of batches 2..5), the rate a
+    training run's loader delivers at most."""
+    from genre_shapehd_tpu_torch.core.registry import get_dataset, get_model
+    from genre_shapehd_tpu_torch.data.loader import DataLoader
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    opt = default_opt(device="cpu", data_root=root, classes=cls,
+                      pred_depth_minmax=True,
+                      procedural_length=TRAIN["batch"] * TRAIN["steps"])
+    model = get_model("marrnet1")(opt)
+    out = {}
+    for name in ("shapenet", "procedural"):
+        ds = get_dataset(name)(opt, "train", model=model)
+        per = {}
+        for step, preprocess in (("read", None), ("read_preprocess",
+                                                  model.preprocess)):
+            ds.preprocess = preprocess
+            t0 = time.perf_counter()
+            for i in range(8):
+                ds[i]
+            per[step] = (time.perf_counter() - t0) / 8 * 1e3
+        times, t0 = [], time.perf_counter()
+        for batch in DataLoader(ds, TRAIN["batch"], 4):
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            if len(times) == 5:
+                break
+        out[name] = dict(sample_ms=per,
+                         batch_ms=statistics.median(times[1:]) * 1e3)
+    log(f"[shapenet] MarrNet-1's loader on this host's CPU: "
+        f"{json.dumps(out)} (ms a sample on one thread, read alone and "
+        f"with preprocess; ms a batch of 4 on 4 threads)")
+    return out
+
+
+def png_read_times(root, work):
+    """``read_png`` on this host's CPU, ms a file (median of 5), for a
+    480² 8-bit RGB and a 480² 16-bit depth map (the tree's first view,
+    nearest-upsampled) under each row encoding: none (this package's
+    default writer), Sub on every row (cv2's), libpng's adaptive choice
+    (a renderer's; Average and Paeth rows decode by anti-diagonals) and
+    Paeth on every row."""
+    from genre_shapehd_tpu_torch.data.png import read_png, write_png
+    view = sorted(glob.glob(os.path.join(root, "*", "*", "*_rgb.png")))[0]
+    out = {}
+    for kind, suffix in (("rgb8", "_rgb.png"), ("depth16", "_depth.png")):
+        img = read_png(view[:-len("_rgb.png")] + suffix)
+        rows = np.arange(480) * img.shape[0] // 480
+        cols = np.arange(480) * img.shape[1] // 480
+        img = img[rows][:, cols]
+        for filters in (0, 1, "adaptive", 4):
+            path = os.path.join(work, f"read_png_{kind}_{filters}.png")
+            write_png(path, img, filters)
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                got = read_png(path)
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(got, img), f"read_png {kind} {filters}")
+            out[f"{kind}_{filters}"] = statistics.median(times)
+            os.remove(path)
+    log(f"[shapenet] read_png on this host's CPU, ms a 480² file by row "
+        f"encoding (0 none, 1 Sub as cv2 writes, adaptive as libpng "
+        f"chooses, 4 Paeth): {json.dumps(out)}")
+    return out
+
+
+def phase_exact_render(device, flush):
+    """The exact renderer (``ops.render_spherical``: F.grid_sample along
+    each ray) against K1 + K2 (``ops.render_spherical_fast``) at full
+    width, batch 4, on four of phase 7's solids (1 - 1e-4 inside, 1e-4
+    outside), in float32 and bf16 (the exact one on the volume cast to
+    bf16, K1 + K2 computing in bf16): within the JAX package's bounds
+    between the two formulations (tests/test_render_fast.py:47-48), a
+    mean difference below 0.01 and a maximum below 0.1; their times (CUDA
+    events, median of 25, L2 flushed) and the exact one's peak memory."""
+    import torch
+    from genre_shapehd_tpu_torch import ops
+    from genre_shapehd_tpu_torch.data import procedural
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    b, r, z = TRAIN["batch"], MAIN["r"], MAIN["z"]
+    ds = procedural.Dataset(default_opt(
+        device="cpu", procedural_length=TRAIN["batch"] * TRAIN["steps"]),
+        "train")
+    # the solids in the frame the model renders them (train frame)
+    vox = np.stack([np.flip(np.transpose(ds._raw(i)["voxel"], (0, 2, 1)), 2)
+                    for i in range(b)])
+    vox = torch.from_numpy(np.where(vox > 0.5, 1 - 1e-4, 1e-4).astype(
+        np.float32)).to(device)
+    rows = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        exact_in = vox.to(dt)
+        exact = lambda: ops.render_spherical(exact_in, r, z)  # noqa: E731
+        fast = lambda: ops.render_spherical_fast(              # noqa: E731
+            vox, r, z, compute_dtype=dt)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            e = exact()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            f = fast()
+            diff = (e.float() - f.float()).abs()
+            d_mean, d_max = float(diff.mean()), float(diff.max())
+            ms_exact, ms_fast = time_ms(exact, flush), time_ms(fast, flush)
+        check(e.shape == f.shape == (b, r, r) and d_mean < 0.01
+              and d_max < 0.1, f"exact vs K1 + K2, {name}: mean {d_mean}, "
+              f"max {d_max} (bounds 0.01, 0.1)")
+        rows[name] = dict(mean_abs_diff=d_mean, max_abs_diff=d_max,
+                          exact_ms=ms_exact, k1_k2_ms=ms_fast,
+                          exact_peak_gib=peak)
+        log(f"[exact] {name}, batch {b}, {vox.shape[1]}^3 -> {r}^2 x {z} "
+            f"samples, four of phase 7's solids: exact renderer vs K1 + K2 "
+            f"mean {d_mean:.3g}, max {d_max:.3g} "
+            f"(bounds 0.01, 0.1); exact {ms_exact:.3f} ms, K1 + K2 "
+            f"{ms_fast:.3f} ms (events, median of 25, L2 flushed); the exact "
+            f"renderer's peak memory {peak:.2f} GiB above its input")
+    return rows
+
+
 def phase_family_profile(device, runs):
     """torch.profiler over one train step of WGAN-GP and of ShapeHD, after
     two warm ones, on procedural scenes: device time per span
@@ -2215,6 +2601,10 @@ def main() -> int:
     phase_train_profile(device, runs)
     family = phase_family(device, work, marrnet1_ckpt)
     phase_family_profile(device, family)
+    shapenet = phase_shapenet(work)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
+    exact = phase_exact_render(device, flush)
+    del flush
 
     kernels = []
     for name in ("render_stage1", "render_stage2_scan", k3, k4, k5):
@@ -2233,7 +2623,10 @@ def main() -> int:
                                    for r in staged.values()),
             "launches_family": sum(r["launches"].get(name, 0)
                                    for r in family.values()
-                                   if "launches" in r)})
+                                   if "launches" in r),
+            "launches_shapenet": sum(r["launches"].get(name, 0)
+                                     for r in shapenet.values()
+                                     if "launches" in r)})
     # K4 is timed at 8 x 8192 x 8192 points; the scoring path gives it the
     # eval protocol's 1 x 1024 x 1024, where launch latency dominates
     ev = k4_times[eval_shape]
@@ -2278,6 +2671,12 @@ def main() -> int:
         f"family (procedural) "
         + ", ".join(f"{k} {family[k]['step_ms']:.1f} ms" for k in (
             "marrnet2", "wgangp", "wgangp_d_iter2", "shapehd", "marrnet"))
+        + "; ShapeNet tree (scripts' command lines) "
+        + ", ".join(f"{k} {v['step_ms']:.1f} ms (data {v['data_ms']:.1f})"
+                    for k, v in shapenet.items() if "step_ms" in v)
+        + "; exact renderer vs K1 + K2, batch 4: "
+        + ", ".join(f"{k} {v['exact_ms']:.3f} vs {v['k1_k2_ms']:.3f} ms"
+                    for k, v in exact.items())
         + f"; total {time.perf_counter() - t_start:.0f} s")
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,6 +29,8 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> Set[str]:
     add("--epoch", type=int, default=0, help="number of epochs to train")
     add("--dataset", type=str, default=None, help="dataset alias")
     add("--workers", type=int, default=4, help="data-loading threads")
+    add("--classes", default="car", type=str,
+        help="ShapeNet classes: aliases or synset ids joined by '+'")
     add("--batch_size", type=int, default=16)
     add("--epoch_batches", default=None, type=int,
         help="batches used per epoch")
@@ -55,6 +57,20 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> Set[str]:
         help="experiment index; >0 refuses deletion")
     add("--save_net", type=int, default=1,
         help="save the network every N epochs")
+    add("--vis_every_vali", default=1, type=int,
+        help="draw the eval visualizations every N epochs")
+    add("--vis_batches_vali", type=int, default=10,
+        help="eval batches drawn (and dumped as .npz) an epoch; 0: none")
+    add("--vis_workers", default=4, type=int,
+        help="visualizer threads (0: write synchronously)")
+    add("--vis_param_f", default=None, type=str,
+        help='JSON file {"voxel": {"isosurf_thres": x}}')
+    add("--tensorboard", action="store_true",
+        help="write TensorBoard scalars (needs the tensorboardX package)")
+    add("--backbone_init", type=str, default=None,
+        help="checkpoint whose first net is a ResNet-18 encoder (the JAX "
+             "package's ResNet18Features tree): MarrNet-1's encoder "
+             "starts from it")
     add("--im_size", type=int, default=256)
     add("--vox_res", type=int, default=128)
     add("--sph_res", type=int, default=128)

@@ -1,17 +1,23 @@
-"""Train entry point (counterpart of ``genre_shapehd_tpu/cli/train.py``).
+"""Train entry point (counterpart of ``genre_shapehd_tpu/cli/train.py``);
+it takes the command lines of the JAX package's ``scripts/train_*.sh``.
 
-  python -m genre_shapehd_tpu_torch.cli.train --net genre_full_model \\
-      --dataset synthetic --batch_size 4 --dtype bfloat16 \\
-      --epoch 1 --epoch_batches 8 --eval_batches 1 --surface_weight 10 \\
-      --logdir logs --expr_id 0 [--joint_train] [--inpaint_path ckpt.pt] \\
-      [--device cuda]
+  python -m genre_shapehd_tpu_torch.cli.train --net marrnet1 \\
+      --pred_depth_minmax --dataset shapenet --classes chair \\
+      --data_root <ShapeNet renderings> --batch_size 4 \\
+      --epoch_batches 2500 --eval_batches 5 --log_time --optim adam \\
+      --lr 1e-3 --epoch 1000 --vis_batches_vali 10 --save_net 10 \\
+      --workers 4 --logdir output/marrnet1 --suffix '{classes}' \\
+      [--tensorboard] [--dtype bfloat16] [--device cuda]
 
 Writes under ``<logdir>/<net>_<dataset>_<lr>[_<suffix>]/<expr_id>/``:
 ``opt.pt`` / ``opt.txt``, ``epoch_loss.csv`` (``batch_loss.csv`` with
 ``--log_batch``), ``checkpoint.pt`` every epoch, ``nets/NNNN.pt`` every
 ``--save_net`` epochs and ``best.pt`` on the eval loss -- checkpoints in
-the JAX package's format, which either package's ``cli.test`` reads.
-``--resume -1`` continues from ``checkpoint.pt``, Adam's state included.
+the JAX package's format, which either package's ``cli.test`` reads;
+``epochNNNN_vali/`` with the visualizations and ``batchNNNN.npz`` of the
+first ``--vis_batches_vali`` eval batches; ``tensorboard/`` under
+``--tensorboard`` (needs tensorboardX).  ``--resume -1`` continues from
+``checkpoint.pt``, Adam's state included.
 """
 
 from __future__ import annotations
@@ -28,8 +34,10 @@ from ..core.device import resolve_device
 from ..core.registry import get_dataset, get_model
 from ..data.loader import DataLoader
 from ..train.loggers import (BatchCsvLogger, ComposeLogger, CsvLogger,
-                             ModelSaveLogger, ProgbarLogger, TerminateOnNaN)
+                             ModelSaveLogger, ProgbarLogger,
+                             TensorBoardLogger, TerminateOnNaN)
 from ..train.loop import Trainer
+from ..viz.visualizer import Visualizer
 from . import options
 
 
@@ -73,8 +81,13 @@ def main(argv=None) -> int:
                TerminateOnNaN()]
     if opt.log_batch:
         loggers.append(BatchCsvLogger(f"{opt.full_logdir}/batch_loss.csv"))
+    if opt.tensorboard:
+        loggers.append(TensorBoardLogger(f"{opt.full_logdir}/tensorboard"))
     logger = ComposeLogger(loggers)
-    trainer = Trainer(model, opt, logger)
+    visualizer = Visualizer(n_workers=opt.vis_workers,
+                            param_f=opt.vis_param_f) \
+        if opt.vis_batches_vali > 0 else None
+    trainer = Trainer(model, opt, logger, visualizer=visualizer)
     trainer.initialize(seed)
 
     # checkpoints: the latest every epoch, snapshots every --save_net
@@ -106,9 +119,13 @@ def main(argv=None) -> int:
                      else len(vali_loader), len(vali_loader))
     print(f"[setup] {len(ds_train)} train / {len(ds_vali)} vali samples; "
           f"{steps} steps/epoch, {eval_steps} eval batches")
-    trainer.fit(train_loader, vali_loader, epochs=opt.epoch,
-                steps_per_epoch=steps, eval_batches=eval_steps,
-                eval_at_start=opt.eval_at_start)
+    try:
+        trainer.fit(train_loader, vali_loader, epochs=opt.epoch,
+                    steps_per_epoch=steps, eval_batches=eval_steps,
+                    eval_at_start=opt.eval_at_start)
+    finally:
+        if visualizer is not None:
+            visualizer.close()      # waits; re-raises a drawing's failure
     return 0
 
 

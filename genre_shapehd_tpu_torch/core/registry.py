@@ -21,6 +21,7 @@ _DATASET_MODULES: Dict[str, str] = {
     "test": "genre_shapehd_tpu_torch.data.testset",
     "synthetic": "genre_shapehd_tpu_torch.data.synthetic",
     "procedural": "genre_shapehd_tpu_torch.data.procedural",
+    "shapenet": "genre_shapehd_tpu_torch.data.shapenet",
 }
 
 

@@ -1,2 +1,3 @@
 """Host-side data: PNG I/O, test-time preprocessing, the glob test
-dataset, the synthetic and procedural datasets and the batched loader."""
+dataset, the synthetic, procedural and ShapeNet datasets and the batched
+loader."""

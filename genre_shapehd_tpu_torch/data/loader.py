@@ -29,7 +29,8 @@ class DataLoader:
     """Batches built by ``num_workers`` threads, ``PREFETCH`` batches
     ahead.  In order, the last one short, unless ``shuffle`` (a new
     permutation each pass, from ``seed`` + the pass number) or
-    ``drop_last``."""
+    ``drop_last``.  A dataset with ``set_epoch`` is given the pass
+    number before the pass starts (its augmentation draws from it)."""
     PREFETCH = 2
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
@@ -57,6 +58,8 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[Dict]:
         batches = self._index_batches()
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(self.epoch)
         self.epoch += 1
         q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH)
         stop = threading.Event()

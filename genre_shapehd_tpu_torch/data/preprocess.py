@@ -33,22 +33,24 @@ _LIGHT_EIGVECS = np.array([
 
 
 def imread_rgb(path: str) -> np.ndarray:
-    """RGB in [0, 1] (float64); an alpha channel is dropped, a grayscale
-    file stays (H, W)."""
+    """RGB in [0, 1] (float64), divided by the dtype's maximum (255 or
+    65535); an alpha channel is dropped, a grayscale file stays (H, W)."""
     im = read_png(path)
     if im.ndim == 3:
         im = im[..., :3]
-    return im.astype(np.float64) / 255.0
+    return im.astype(np.float64) / np.iinfo(im.dtype).max
 
 
 def imread_gray(path: str) -> np.ndarray:
-    """Grayscale in [0, 1] (float64); colour files are converted with the
-    ITU-R 601 weights 0.299, 0.587, 0.114."""
+    """Grayscale in [0, 1] (float64, divided by the dtype's maximum);
+    colour files are converted with the ITU-R 601 weights 0.299, 0.587,
+    0.114."""
     im = read_png(path)
+    maxv = np.iinfo(im.dtype).max
     if im.ndim == 3:
         rgb = im[..., :3].astype(np.float64)
         im = np.round(rgb @ np.array([0.299, 0.587, 0.114]))
-    return im.astype(np.float64) / 255.0
+    return im.astype(np.float64) / maxv
 
 
 def imwrite_rgb(path: str, im01: np.ndarray) -> None:
@@ -67,6 +69,12 @@ def _interpolate(im: np.ndarray, size: Tuple[int, int],
     out = F.interpolate(t, size=size, mode=mode, align_corners=False)[0]
     out = out[0] if im.ndim == 2 else out.permute(1, 2, 0)
     return out.numpy()
+
+
+def resize_linear(im: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bilinear resize to (h, w) (``cv2.resize`` with ``INTER_LINEAR``),
+    float64."""
+    return _interpolate(im, (h, w), "bilinear")
 
 
 def resize(im: np.ndarray, target_size: int,

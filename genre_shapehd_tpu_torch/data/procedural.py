@@ -23,7 +23,8 @@ Frame conventions (``ops/camera_bp.py``, ``ops/render_sph_fast.py``):
     first enters the union.  Background pixels hold 1.0.
 
 Train-time augmentation draws from a generator seeded by
-``(--manual_seed, index, train)``, as in ``data/synthetic.py``.
+``(--manual_seed, pass, index, train)``, the pass being the loader's
+(``set_epoch``): each pass over the scenes draws anew.
 """
 
 from __future__ import annotations
@@ -350,11 +351,16 @@ class Dataset:
         self.max_prims = getattr(opt, "procedural_max_prims", 4)
         self.length = int(getattr(opt, "procedural_length", 512))
         self.seed = getattr(opt, "manual_seed", None) or 0
+        self.epoch = 0
         if mode != "train":
             self.length = max(self.length // 8, 16)
 
     def __len__(self):
         return self.length
+
+    def set_epoch(self, epoch: int) -> None:
+        """The loader's pass number, which seeds the augmentation."""
+        self.epoch = epoch
 
     def _seed(self, i: int) -> int:
         return 2 * i + (1_000_003 if self.mode != "train" else 0)
@@ -458,7 +464,8 @@ class Dataset:
                 raise KeyError(f"procedural dataset cannot make '{key}'")
         if self.preprocess is not None:
             train = self.mode == "train"
-            aug = np.random.default_rng([self.seed, i, int(train)])
+            aug = np.random.default_rng(
+                [self.seed, self.epoch, i, int(train)])
             sample = self.preprocess(sample, mode=self.mode, rng=aug)
         sample["rgb_path"] = f"procedural://{self.mode}/{i}"
         return sample

@@ -42,7 +42,8 @@ def default_opt(**overrides) -> SimpleNamespace:
         surface_weight=1.0, joint_w25d=0.01, augment=True, no_aug=False,
         canon_sup=False, canon_voxel=False, wgangp_lambda=10.0,
         wgangp_norm=1.0, gan_d_iter=1, marrnet1=None, marrnet2=None,
-        gan=None, w_gan_loss=0.0, marrnet1_file=None)
+        gan=None, w_gan_loss=0.0, marrnet1_file=None, backbone_init=None,
+        exact_render=False)
     base.update(overrides)
     return SimpleNamespace(**base)
 

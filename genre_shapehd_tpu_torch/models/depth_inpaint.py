@@ -3,7 +3,8 @@
 
   rgb --net1 (U-ResNet + minmax)--> 2.5D + minmax
       --abs depth, silhouette-masked, camera frame--> camera backprojection
-      --spherical render (CUDA kernels K1, K2)--> partial spherical map
+      --spherical render (CUDA kernels K1, K2; ``exact_render``: the
+        trilinear ray sampler of ``ops/render_sph.py``)--> partial map
       --wrap/replicate pad--> net2 (inpainting U-ResNet) --> full map
 
 The nets run in the compute dtype; the geometry between them in float32.
@@ -46,7 +47,8 @@ class DepthInpaintNet(nn.Module):
                  sph_res: int = 128, z_res: int = 256,
                  padding_margin: int = 16, joint_train: bool = False,
                  dtype: torch.dtype = torch.float32, *,
-                 load_offline: bool = False, gt_depth_input: bool = False,
+                 load_offline: bool = False, exact_render: bool = False,
+                 gt_depth_input: bool = False,
                  gt_minmax_input: bool = False, net1_width: float = 1.0,
                  net1_head_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -55,6 +57,7 @@ class DepthInpaintNet(nn.Module):
         self.joint_train = joint_train
         self.dtype = dtype
         self.load_offline = load_offline
+        self.exact_render = exact_render
         self.gt_depth_input = gt_depth_input
         self.gt_minmax_input = gt_minmax_input
         self.net1 = UResNet(3, (3, 1, 1), ("normal", "depth", "silhou"),
@@ -104,9 +107,13 @@ class DepthInpaintNet(nn.Module):
                 sph_in = spherical_depth[..., 0]
             else:
                 clipped = torch.clamp(proj * 50.0, 1e-5, 1.0 - 1e-5)
-                sph_in = ops.render_spherical_fast(
-                    clipped, self.sph_res, self.z_res,
-                    compute_dtype=self.dtype)
+                if self.exact_render:
+                    sph_in = ops.render_spherical(clipped, self.sph_res,
+                                                  self.z_res)
+                else:
+                    sph_in = ops.render_spherical_fast(
+                        clipped, self.sph_res, self.z_res,
+                        compute_dtype=self.dtype)
         with record_function("genre.net2"), \
                 net_autocast(rgb.device, self.dtype):
             sph_in = ops.sph_pad(sph_in[..., None], self.padding_margin)
@@ -137,6 +144,10 @@ class Model(DepthModel):
         parser.add_argument("--net1_path", default=None, type=str,
                             help="pretrained net1 (marrnet1) checkpoint")
         parser.add_argument("--padding_margin", default=16, type=int)
+        parser.add_argument("--exact_render", action="store_true",
+                            help="render with the trilinear ray sampler "
+                                 "(ops/render_sph.py) instead of the "
+                                 "kernels K1 and K2")
         parser.add_argument("--gt_depth_input", action="store_true",
                             help="oracle: the ground-truth depth and "
                                  "min/max feed the geometry chain")
@@ -158,6 +169,7 @@ class Model(DepthModel):
         opt.pred_depth_minmax = True
         self.joint_train = bool(getattr(opt, "joint_train", False))
         self.load_offline = bool(getattr(opt, "load_offline", False))
+        self.exact_render = bool(getattr(opt, "exact_render", False))
         self.gt_depth_input = bool(getattr(opt, "gt_depth_input", False))
         self.gt_minmax_input = bool(getattr(opt, "gt_minmax_input", False))
         super().__init__(opt)
@@ -187,6 +199,7 @@ class Model(DepthModel):
                     padding_margin=opt.padding_margin,
                     joint_train=self.joint_train, dtype=self.dtype,
                     load_offline=self.load_offline,
+                    exact_render=self.exact_render,
                     gt_depth_input=self.gt_depth_input,
                     gt_minmax_input=self.gt_minmax_input,
                     net1_width=kw["decoder_width"],
@@ -199,6 +212,10 @@ class Model(DepthModel):
         super().init_state(seed)
         if getattr(self.opt, "net1_path", None):
             self.load_subnet("net1", self.opt.net1_path)
+
+    def load_backbone(self) -> None:
+        """None: net1 starts from ``--net1_path``; ``--backbone_init`` is
+        MarrNet-1's alone, as in the JAX package."""
 
     def oracle_inputs(self, batch: Dict[str, torch.Tensor]) -> Dict:
         """The batch's tensors that the oracle flags feed into the net."""

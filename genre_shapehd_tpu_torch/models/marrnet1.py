@@ -16,6 +16,8 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ..core.checkpoint import load_checkpoint
+from ..core.convert import jax_to_torch
 from ..nn import UResNet
 from .base import ModelBase, as_numpy, masked_mse, net_autocast
 
@@ -69,6 +71,20 @@ class Model(ModelBase):
         return UResNet(3, (3, 1, 1), ("normal", "depth", "silhou"),
                        pred_depth_minmax=self.pred_depth_minmax,
                        **self.net1_kwargs())
+
+    def init_state(self, seed: int = 0) -> None:
+        super().init_state(seed)
+        self.load_backbone()
+
+    def load_backbone(self) -> None:
+        """Under ``--backbone_init`` the encoder's weights and batch
+        statistics come from that checkpoint's first net, a ResNet-18
+        encoder in the JAX package's layout (its ``ResNet18Features``
+        tree)."""
+        if getattr(self.opt, "backbone_init", None):
+            net = load_checkpoint(self.opt.backbone_init)["nets"][0]
+            self.net.ResNet18Features_0.load_state_dict(jax_to_torch(
+                net["params"], net.get("batch_stats") or {}))
 
     def forward_batch(self, batch: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:

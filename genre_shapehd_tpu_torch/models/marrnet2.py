@@ -61,12 +61,14 @@ class Model(ModelBase):
             else "voxel"
         self.requires = ["rgb", "depth", "normal", "silhou", self.voxel_key]
         self.gt_names = [self.voxel_key]
-        self.silhou_thres = silhou_thres
+        # the net's input mask; ``silhou_thres`` stays the dataset's
+        # binarization threshold of ``preprocess``
+        self.mask_thres = silhou_thres
         self.net = self.build_net().eval()
 
     def build_net(self) -> nn.Module:
         return Marrnet2Net(vox_res=self.opt.vox_res,
-                           silhou_thres=self.silhou_thres)
+                           silhou_thres=self.mask_thres)
 
     def forward_batch(self, batch: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:

@@ -99,3 +99,37 @@ def camera_backproject_shifted(depth: torch.Tensor, fl: float = FL_GENRE,
                                res: int = 128) -> torch.Tensor:
     """Backproject, then shift (the GenRe model's use of the op)."""
     return shift_tdf(camera_backproject(depth, fl, cam_dist, res), res)
+
+
+def get_surface_mask(depth: torch.Tensor, fl: float = FL_GENRE,
+                     cam_dist: float = CAM_DIST, res: int = 128
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Visibility and free-space masks of a (N, H, W) ray-depth image,
+    each (N, res, res, res): ``surface_vox`` is 1 where a point landed;
+    ``mask`` is 1 except at empty voxels that project inside the image
+    onto a pixel of depth >= 0 and lie in front of that depth (free space,
+    carved to 0)."""
+    n, h, w = depth.shape
+    dt, dev = depth.dtype, depth.device
+    _, cnt = _scatter_mean_tdf(
+        _camera_glob_coords(depth, fl, cam_dist),
+        (depth >= 0).reshape(n, -1), res, background=1.0 / res)
+    surface_vox = torch.clamp(cnt, 0.0, 1.0)
+
+    # voxel centres onto the image plane
+    centre = (torch.arange(res, dtype=dt, device=dev) + 0.5) / res - 0.5
+    cx = centre[:, None, None]
+    cy = centre[None, :, None]
+    cz = centre[None, None, :]
+    fl_t = torch.tensor(fl, dtype=dt, device=dev)
+    cd_t = torch.tensor(cam_dist, dtype=dt, device=dev)
+    denom = cx + cd_t
+    idh = torch.round(0.5 * (h - 1.0) - cz * fl_t / denom).to(torch.int64)
+    idw = torch.round(0.5 * (w - 1.0) - cy * fl_t / denom).to(torch.int64)
+    inb = (idh >= 0) & (idh < h) & (idw >= 0) & (idw < w)
+    flat = (idh.clamp(0, h - 1) * w + idw.clamp(0, w - 1)).reshape(-1)
+    dep = depth.reshape(n, -1)[:, flat].reshape(n, res, res, res)
+    ray_depth = torch.sqrt((cx + cd_t) ** 2 + cy ** 2 + cz ** 2)
+    carve = (cnt <= 1e-5) & inb & (dep >= 0) & (dep < ray_depth)
+    return surface_vox, torch.where(carve, 0.0, 1.0).to(dt)
+

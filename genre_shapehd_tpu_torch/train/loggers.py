@@ -1,8 +1,8 @@
-"""Training callbacks: progress bar, CSVs, NaN guard, checkpoints
-(counterpart of ``genre_shapehd_tpu/train/loggers.py``, without the
-TensorBoard logger).  The event protocol is the JAX package's:
-on_train_begin/end, on_epoch_begin/end, on_batch_begin/end, and a
-train/eval mode toggle, driven by ``train/loop.py``.  Every batch log is
+"""Training callbacks: progress bar, CSVs, NaN guard, TensorBoard
+scalars, checkpoints (counterpart of
+``genre_shapehd_tpu/train/loggers.py``).  The event protocol is the JAX
+package's: on_train_begin/end, on_epoch_begin/end, on_batch_begin/end,
+and a train/eval mode toggle, driven by ``train/loop.py``.  Every batch log is
 a dict of sample-mean metrics with 'size' and (train) 'loss' keys.
 """
 
@@ -276,6 +276,32 @@ class TerminateOnNaN(Logger):
         for k, v in batch_log.items():
             if isinstance(v, (int, float, np.floating)) and np.isnan(v):
                 self.batch_with_nan = batch
+
+
+class TensorBoardLogger(Logger):
+    """Each epoch's mean metrics as TensorBoard scalars ``train/<k>`` and
+    ``eval/<k>``, through tensorboardX.  Without that package it raises
+    ImportError when built, before the run's first step."""
+
+    def __init__(self, logdir: str):
+        super().__init__()
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError as e:
+            raise ImportError(
+                "--tensorboard needs the tensorboardX package, which is not "
+                "installed") from e
+        self.writer = SummaryWriter(logdir)
+
+    def on_epoch_end(self, epoch, epoch_log):
+        phase = "train" if self.training else "eval"
+        for k, v in epoch_log.items():
+            if isinstance(v, (int, float, np.floating)) and k != "size":
+                self.writer.add_scalar(f"{phase}/{k}", float(v), epoch)
+        self.writer.flush()
+
+    def on_train_end(self):
+        self.writer.close()
 
 
 class ModelSaveLogger(Logger):

@@ -6,7 +6,9 @@ the current step runs.  Metrics come back as device scalars; reading
 them waits for the device, so they are read every ``opt.log_every``
 steps (default 1: every step), in order.  With ``opt.log_time`` each
 step ends in a device synchronise, so ``batch_time`` is the step's wall
-time on the device.
+time on the device.  With a visualizer, the first ``opt.vis_batches_vali``
+eval batches of every ``opt.vis_every_vali``-th epoch are drawn and
+dumped as ``.npz`` under ``<full_logdir>/epochNNNN_vali/``.
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ from .state import reference_payload_to_state, state_to_reference_payload
 
 
 class Trainer:
-    def __init__(self, model, opt, logger: Optional[ComposeLogger] = None):
+    def __init__(self, model, opt, logger: Optional[ComposeLogger] = None,
+                 visualizer=None):
         self.model = model
+        self.visualizer = visualizer
         self.opt = opt
         self.logger = logger or ComposeLogger([])
         self.cumulator = LogCumulator()
@@ -114,7 +118,8 @@ class Trainer:
             if training:
                 metrics = self.model.train_step(dev_batch)
             else:
-                metrics, _ = self.model.eval_step(dev_batch)
+                metrics, pred = self.model.eval_step(dev_batch)
+                self._maybe_visualize(epoch, i, pred, batch)
             if sync:
                 torch.cuda.synchronize(self.model.device)
             base = {"size": len(next(iter(dev_batch.values())))}
@@ -129,6 +134,24 @@ class Trainer:
         epoch_log = self.cumulator.get_epoch_log()
         logger.on_epoch_end(epoch, epoch_log)
         return epoch_log
+
+    def _maybe_visualize(self, epoch: int, batch_idx: int, pred: Dict,
+                         batch: Dict) -> None:
+        """Draw an eval batch and dump its packed output as
+        ``batchNNNN.npz``, for the first ``vis_batches_vali`` batches of
+        every ``vis_every_vali``-th epoch."""
+        opt = self.opt
+        if self.visualizer is None \
+                or epoch % max(getattr(opt, "vis_every_vali", 1), 1) != 0 \
+                or batch_idx >= getattr(opt, "vis_batches_vali", 0):
+            return
+        outdir = os.path.join(opt.full_logdir, f"epoch{epoch:04d}_vali")
+        os.makedirs(outdir, exist_ok=True)
+        output = self.model.pack_output(pred, batch)
+        self.visualizer.visualize(output, batch_idx, outdir)
+        np.savez(os.path.join(outdir, f"batch{batch_idx:04d}"),
+                 **{k: v for k, v in output.items()
+                    if isinstance(v, np.ndarray)})
 
     def train_epoch_pair(self, epoch: int, train_iter, eval_loader,
                          steps_per_epoch: int,

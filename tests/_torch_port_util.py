@@ -301,3 +301,4 @@ def jax_test_outputs(net, opt, out_dir):
     for i, batch in enumerate(DataLoader(ds, opt.batch_size, shuffle=False,
                                          num_workers=2, drop_last=False)):
         mt.test_on_batch(i, batch)
+

@@ -114,8 +114,8 @@ def test_disk_cache_is_shared_with_jax(tmp_path, monkeypatch):
 
 def test_augmentation_is_seeded_by_manual_seed(no_disk_cache):
     """Train-mode augmentation draws from a generator seeded by
-    (--manual_seed, index, train): two datasets agree, another seed or
-    --no_aug differs, and held-out samples are never augmented."""
+    (--manual_seed, pass, index, train): two datasets agree, another seed
+    or --no_aug differs, and held-out samples are never augmented."""
     def rgb(mode="train", **kw):
         opt = default_opt(device="cpu", **DIMS, procedural_length=8, **kw)
         model = get_model("marrnet1")(opt)
@@ -126,6 +126,21 @@ def test_augmentation_is_seeded_by_manual_seed(no_disk_cache):
     assert np.abs(a - rgb(manual_seed=3, no_aug=True)).max() > 1e-3
     np.testing.assert_array_equal(rgb("vali", manual_seed=3),
                                   rgb("vali", manual_seed=4))
+
+
+def test_augmentation_draws_anew_each_loader_pass(no_disk_cache):
+    """The loader gives the dataset its pass number: the second pass
+    over a scene draws another augmentation than the first."""
+    from genre_shapehd_tpu_torch.data.loader import DataLoader
+    opt = default_opt(device="cpu", **DIMS, procedural_length=2,
+                      manual_seed=3)
+    ds = get_dataset("procedural")(opt, "train",
+                                   model=get_model("marrnet1")(opt))
+    loader = DataLoader(ds, 1, num_workers=1)
+    first, second = (next(iter(loader))["rgb"][0] for _ in range(2))
+    assert np.abs(first - second).max() > 1e-3
+    ds.set_epoch(1)
+    np.testing.assert_array_equal(ds[0]["rgb"], second)
 
 
 def test_warm_in_worker_processes_equals_generation(tmp_path, monkeypatch):
