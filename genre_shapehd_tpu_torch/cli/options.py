@@ -2,7 +2,8 @@
 train flags, parsed in two stages (general flags, then the chosen
 model's and dataset's ``add_arguments``, each of which names the
 ``unique_params`` that a resume does not overwrite); the test flags of
-the inference path; ``--device`` for both.
+the inference path; ``--device`` for both, and for training
+``--multihost`` with its transport ``--dist_backend``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import argparse
 import pickle
 from typing import Set, Tuple
 
+from ..core.device import device_name
 from ..core.registry import get_dataset, get_model
 
 
@@ -18,7 +20,8 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> Set[str]:
     """The JAX package's general train flags that this package reads,
     plus ``--device``; returns the general ``unique_params``."""
     unique_params = {"resume", "epoch", "workers", "batch_size", "save_net",
-                     "epoch_batches", "logdir", "device"}
+                     "epoch_batches", "logdir", "device", "multihost",
+                     "dist_backend", "profile_step"}
     add = parser.add_argument
     add("--manual_seed", type=int, default=None,
         help="seed of the weights, the shuffling and the augmentation")
@@ -80,8 +83,22 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> Set[str]:
         help="compute dtype of the nets and the renderer")
     add("--synthetic_length", type=int, default=64,
         help="samples per epoch of the synthetic dataset")
-    add("--device", type=str, default="cuda", choices=("cuda", "cpu"),
-        help="cuda (default) raises when no GPU is present")
+    add("--device", type=device_name, default="cuda",
+        help="cuda (default; raises when no GPU is present), cuda:N or "
+             "cpu.  Under --multihost, cuda is cuda:<LOCAL_RANK>; cuda:N "
+             "puts every rank on card N")
+    add("--multihost", action="store_true",
+        help="data parallelism across the processes that torchrun starts "
+             "(python -m torch.distributed.run --nproc_per_node N -m "
+             "genre_shapehd_tpu_torch.cli.train --multihost ...): each "
+             "rank loads its slice of the global --batch_size")
+    add("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+        help="the ranks' transport under --multihost (default: nccl on a "
+             "card, gloo on --device cpu)")
+    add("--profile_step", type=int, default=0,
+        help="run train step N (counted from 1 in this run) under "
+             "torch.profiler on rank 0 and write its kernels and "
+             "all-reduce times to <logdir>/profile_step.json; 0: none")
     return unique_params
 
 
@@ -146,9 +163,9 @@ def parse_test(argv=None) -> argparse.Namespace:
     p.add_argument("--dtype", type=str, default="float32",
                    choices=("float32", "bfloat16"),
                    help="compute dtype of the nets and the renderer")
-    p.add_argument("--device", type=str, default="cuda",
-                   choices=("cuda", "cpu"),
-                   help="cuda (default) raises when no GPU is present")
+    p.add_argument("--device", type=device_name, default="cuda",
+                   help="cuda (default; raises when no GPU is present), "
+                        "cuda:N or cpu")
     opt = p.parse_args(argv)
     opt.dataset = "test"
     return opt

@@ -1,5 +1,5 @@
 """Batched loading with a thread pool and a prefetch queue (counterpart of
-``genre_shapehd_tpu/data/loader.py``, single process)."""
+``genre_shapehd_tpu/data/loader.py``)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+
+from ..parallel.mesh import shard_slice
 
 
 def collate(samples: List[Dict]) -> Dict:
@@ -30,12 +32,22 @@ class DataLoader:
     ahead.  In order, the last one short, unless ``shuffle`` (a new
     permutation each pass, from ``seed`` + the pass number) or
     ``drop_last``.  A dataset with ``set_epoch`` is given the pass
-    number before the pass starts (its augmentation draws from it)."""
+    number before the pass starts (its augmentation draws from it).
+
+    ``batch_size`` is the global batch.  With ``num_shards`` > 1 (the
+    ranks of ``cli.train --multihost``) every shard draws the same index
+    sequence and loads only its contiguous slice of each batch, repeated
+    first to lcm(B, N) when N does not divide B
+    (``parallel.mesh.shard_slice``); full batches only (``drop_last``)."""
     PREFETCH = 2
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
                  shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = False):
+                 drop_last: bool = False, shard_id: int = 0,
+                 num_shards: int = 1):
+        if num_shards > 1 and not drop_last:
+            raise ValueError("num_shards > 1 needs drop_last: every shard "
+                             "holds an equal slice of a full batch")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
@@ -43,6 +55,8 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.epoch = 0
+        self.num_shards = num_shards
+        self.shard = shard_slice(batch_size, num_shards, shard_id)
 
     def __len__(self):
         n = len(self.dataset)
@@ -54,7 +68,10 @@ class DataLoader:
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         bs = self.batch_size
-        return [idx[i * bs:(i + 1) * bs].tolist() for i in range(len(self))]
+        batches = [idx[i * bs:(i + 1) * bs] for i in range(len(self))]
+        if self.num_shards > 1:
+            batches = [b[self.shard] for b in batches]
+        return [b.tolist() for b in batches]
 
     def __iter__(self) -> Iterator[Dict]:
         batches = self._index_batches()

@@ -6,7 +6,10 @@ A model owns its net (``self.net``, an ``nn.Module`` on ``opt.device``)
 and its Adam optimizer.  ``train_step(batch)`` runs forward, loss,
 backward and one Adam update and returns the batch's loss terms as
 device scalars; ``eval_step(batch)`` returns them with the predictions.
-Batches are the loaders' numpy dicts, channel-last.
+Batches are the loaders' numpy dicts, channel-last.  In a group of ranks
+(``parallel/mesh.py``, ``cli.train --multihost``) a batch is the rank's
+slice of the global batch; the gradients are averaged over the ranks
+before the update and the returned loss terms are the global batch's.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..core.convert import jax_to_torch
 from ..core.device import resolve_device
 from ..data import preprocess as pp
 from ..nn import init_weights
+from ..parallel import mesh
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -66,9 +70,18 @@ def to_abs_depth(rel_depth: torch.Tensor,
 
 def masked_mse(pred: torch.Tensor, gt: torch.Tensor,
                mask: torch.Tensor) -> torch.Tensor:
-    """Mean over the selected elements -- torch's ``mse(a[m], b[m])``."""
+    """Mean over the selected elements -- torch's ``mse(a[m], b[m])``.
+
+    In a group (``parallel/mesh.py``) the count is the global batch's and
+    the local sum is scaled by the number of ranks, so that the ranks'
+    mean of the value, and of its gradient, is the global batch's."""
     mask = torch.broadcast_to(mask, pred.shape).to(pred.dtype)
-    return (mask * (pred - gt) ** 2).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = (mask * (pred - gt) ** 2).sum()
+    count = mask.sum()
+    if mesh.joined():
+        total = total * mesh.world()
+        count = mesh.all_reduce_sum(count.detach())
+    return total / torch.clamp(count, min=1.0)
 
 
 def as_numpy(x) -> np.ndarray:
@@ -193,10 +206,13 @@ class ModelBase:
             loss, loss_data = self.compute_loss(pred, batch)
         with record_function("genre.backward"):
             loss.backward()
+        mesh.all_reduce_grads(p for g in self.optimizer.param_groups
+                              for p in g["params"])
         with record_function("genre.optimizer"):
             self.optimizer.step()
         self.step += 1
-        return {k: v.detach() for k, v in loss_data.items()}
+        return mesh.all_reduce_metrics(
+            {k: v.detach() for k, v in loss_data.items()})
 
     def eval_step(self, batch: Dict):
         """(loss terms, predictions) in eval mode, without gradients."""
@@ -206,7 +222,7 @@ class ModelBase:
         with torch.no_grad():
             pred = self.forward_batch(batch)
             _, loss_data = self.compute_loss(pred, batch)
-        return loss_data, pred
+        return mesh.all_reduce_metrics(loss_data), pred
 
     # ------------------------------------------------------- data contract
     def preprocess(self, data: Dict, mode: str = "train",

@@ -6,7 +6,9 @@ silhouette, thresholded at ``pred_silhou_thres * scale_25d`` (0.3 x 100),
 masks its predicted depth and normal, which MarrNet-2 maps to voxels.
 Loss: BCE-with-logits on the voxels.  Adam holds every parameter, as the
 JAX package's optimizer does; MarrNet-1's gradients are 0, so its weights
-stay bit for bit (``--wdecay`` would move them, as there).
+stay bit for bit (``--wdecay`` would move them, as there).  Across ranks
+(``cli.train --multihost``) their zero gradients are averaged with the
+rest, and MarrNet-1's statistics, in eval mode, stay as loaded.
 """
 
 from __future__ import annotations

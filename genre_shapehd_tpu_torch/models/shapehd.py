@@ -7,7 +7,10 @@ Three nets: ``net``, the finetuned MarrNet-2 (from ``--marrnet2``);
 D(sigmoid(pred)); only ``net`` is optimised, the critic passing the
 gradient to its input only.  A train step computes what the loss reads
 (``net`` and the critic on its output: one K3 launch); an eval or test
-batch also runs ``net_noft`` and scores its output (two).
+batch also runs ``net_noft`` and scores its output (two).  Across ranks
+(``cli.train --multihost``) only ``net``'s gradients are averaged; the
+frozen copy and the critic take no gradient and run in eval mode, so
+their parameters and statistics stay as loaded on every rank.
 """
 
 from __future__ import annotations

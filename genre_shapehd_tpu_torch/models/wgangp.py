@@ -21,7 +21,11 @@ through the steps that skip G.
 
 The draws z1, alpha and z2 come from the model's ``torch.Generator`` on
 its device, seeded by ``--manual_seed``; ``train_step`` takes them as an
-argument instead (the parity tests hand it the JAX step's draws).
+argument instead (the parity tests hand it the JAX step's draws).  They
+are drawn for the global batch: in a group of ranks (``cli.train
+--multihost``) every rank draws all of them alike, as the JAX package
+draws them from one replicated key, and uses its slice; the gradients are
+averaged over the ranks before each optimizer's step.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from torch.profiler import record_function
 
 from ..nn import VoxelDiscriminator, VoxelGenerator, init_weights
+from ..parallel import mesh
 from .base import ModelBase, as_numpy, keep_batch_stats, net_autocast
 
 
@@ -105,7 +110,7 @@ class Model(ModelBase):
     # ------------------------------------------------------------- steps
     def draw(self, b: int) -> Tuple[torch.Tensor, ...]:
         """z1 (b, nz), alpha (b, 1, 1, 1), z2 (b, nz) from the model's
-        generator."""
+        generator, for a global batch of ``b``."""
         kw = dict(generator=self.generator, device=self.device)
         return (torch.randn((b, self.nz), **kw),
                 torch.rand((b, 1, 1, 1), **kw),
@@ -123,12 +128,15 @@ class Model(ModelBase):
     def train_step(self, batch: Dict, draws: Optional[Tuple] = None
                    ) -> Dict[str, torch.Tensor]:
         """One D update and, every ``gan_d_iter`` steps, one G update;
-        ``draws``: (z1, alpha, z2), else drawn from the generator."""
+        ``draws``: (z1, alpha, z2) for the global batch, else drawn from
+        the generator."""
         if not isinstance(next(iter(batch.values())), torch.Tensor):
             batch = self.device_batch(batch)
         real = batch["voxel_canon"]
         b = real.shape[0]
-        z1, alpha, z2 = draws if draws is not None else self.draw(b)
+        if draws is None:
+            draws = self.draw(self.global_batch(b))
+        z1, alpha, z2 = (mesh.local_slice(d) for d in draws)
         self.net_g.train()
         self.net_d.train()
 
@@ -146,7 +154,11 @@ class Model(ModelBase):
             gp = self.gp_lambda * ((gnorm - self.gp_norm) ** 2).mean()
             loss_d = d_fake - d_real + gp
             loss_d.backward()
+            mesh.all_reduce_grads(self.net_d.parameters())
             self.opt_d.step()
+        metrics = {"err_d_real": -d_real.detach(),
+                   "err_d_fake": d_fake.detach(), "err_d_gp": gp.detach(),
+                   "err_d": loss_d.detach()}
 
         if self.step % self.gan_d_iter == 0:
             # D's parameters take no gradient in G's phase
@@ -156,15 +168,20 @@ class Model(ModelBase):
                     self.opt_g.zero_grad(set_to_none=False)
                     err_g = self.critic(self.generate(z2)).mean()
                     (-err_g).backward()
+                    mesh.all_reduce_grads(self.net_g.parameters())
                     self.opt_g.step()
-                    self.last_err_g = (-err_g).detach()
+                    metrics["err_g"] = (-err_g).detach()
             finally:
                 self.net_d.requires_grad_(True)
         self.step += 1
-        loss_d = loss_d.detach()
-        return {"err_d_real": -d_real.detach(), "err_d_fake": d_fake.detach(),
-                "err_d_gp": gp.detach(), "err_d": loss_d,
-                "err_g": self.last_err_g, "loss": loss_d}
+        metrics = mesh.all_reduce_metrics(metrics)
+        self.last_err_g = metrics.pop("err_g", self.last_err_g)
+        return {**metrics, "err_g": self.last_err_g,
+                "loss": metrics["err_d"]}
+
+    def global_batch(self, b: int) -> int:
+        """The global batch of which a rank's batch of ``b`` is a slice."""
+        return self.opt.batch_size if mesh.world() > 1 else b
 
     def eval_step(self, batch: Dict):
         """-mean D(G(z)) as the eval loss.  G normalises with the batch's
@@ -172,14 +189,15 @@ class Model(ModelBase):
         as they were."""
         if not isinstance(next(iter(batch.values())), torch.Tensor):
             batch = self.device_batch(batch)
-        z = torch.randn((batch["voxel_canon"].shape[0], self.nz),
-                        generator=self.generator, device=self.device)
+        b = self.global_batch(batch["voxel_canon"].shape[0])
+        z = mesh.local_slice(torch.randn(
+            (b, self.nz), generator=self.generator, device=self.device))
         self.net_g.train()
         with torch.no_grad(), keep_batch_stats(self.net_g):
             gen = self.generate(z)
             disc = self.critic(gen)
-        return {"loss": -disc.mean()}, {"noise": z, "gen_voxel": gen,
-                                        "disc": disc}
+        return mesh.all_reduce_metrics({"loss": -disc.mean()}), {
+            "noise": z, "gen_voxel": gen, "disc": disc}
 
     def pack_output(self, pred, batch, add_gt: bool = True):
         return {k: as_numpy(v) for k, v in pred.items()}

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 class _FlaxStats:
     """Train mode as Flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)``:
@@ -21,11 +23,17 @@ class _FlaxStats:
     move the running variance toward the biased one, where torch takes
     the unbiased (n/(n-1) larger: 4/3 for a batch of 4 in a
     BatchNorm1d).  The statistics are taken in float32, as Flax takes
-    them for a bfloat16 module.  Eval mode is torch's own."""
+    them for a bfloat16 module.  Eval mode is torch's own.
+
+    In a group of more than one rank (``parallel/mesh.py``) the mean and
+    the variance are the global batch's, with the gradient flowing
+    through both, as Flax takes them inside a step jitted over a mesh."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if mesh.world() > 1:
+            return self._global_forward(x)
         dims = (0,) + tuple(range(2, x.dim()))
         with torch.no_grad():
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -37,6 +45,32 @@ class _FlaxStats:
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                              0.0, self.eps)
+
+    def _global_forward(self, x):
+        """Train mode over the ranks' global batch: the mean first, then
+        the mean squared deviation from it (two passes, two all-reduces),
+        in float32; the running statistics move toward the global values,
+        so they stay equal on every rank."""
+        dims = (0,) + tuple(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        n_local = torch.tensor([x.numel() // x.shape[1]], dtype=xs.dtype,
+                               device=x.device)
+        sums = mesh.all_reduce_sum(torch.cat([xs.sum(dims), n_local]))
+        n = sums[-1].detach()
+        mean = sums[:-1] / n
+        centred = xs - mean.reshape(shape)
+        var = mesh.all_reduce_sum((centred * centred).sum(dims)) / n
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked.add_(1)
+        y = centred * torch.rsqrt(var + self.eps).reshape(shape)
+        if self.affine:
+            y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        return y.to(x.dtype)
 
 
 class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):

@@ -1,5 +1,5 @@
 """Training loop: the model's steps over a loader, with the logger bus
-(counterpart of ``genre_shapehd_tpu/train/loop.py``, one device).
+(counterpart of ``genre_shapehd_tpu/train/loop.py``).
 
 A worker thread fetches the next batch and copies it to the device while
 the current step runs.  Metrics come back as device scalars; reading
@@ -9,21 +9,32 @@ step ends in a device synchronise, so ``batch_time`` is the step's wall
 time on the device.  With a visualizer, the first ``opt.vis_batches_vali``
 eval batches of every ``opt.vis_every_vali``-th epoch are drawn and
 dumped as ``.npz`` under ``<full_logdir>/epochNNNN_vali/``.
+
+In a group of ranks (``parallel/mesh.py``) every rank runs the loop on its
+slice of each batch; the model's steps return the global batch's metrics,
+so every logger, ``TerminateOnNaN`` included, sees the same values on
+every rank, and a batch counts as the global batch.  ``initialize`` gives
+every rank rank 0's weights.  With ``opt.profile_step`` N, rank 0 runs
+its N-th train step under ``torch.profiler`` and writes the step's
+kernels and all-reduce times to ``<full_logdir>/profile_step.json``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import queue
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.checkpoint import load_checkpoint, resume_path, save_checkpoint
 from ..data.loader import InfiniteLoader
+from ..parallel import mesh
 from .loggers import ComposeLogger, LogCumulator
 from .state import reference_payload_to_state, state_to_reference_payload
 
@@ -39,10 +50,12 @@ class Trainer:
         self.logger.add_logger(self.cumulator)
         self.start_epoch = 0
         self.initial_loss_eval = float("inf")
+        self.steps_run = 0
 
     # ------------------------------------------------------------ state io
     def initialize(self, seed: int = 0) -> None:
         self.model.init_state(seed)
+        mesh.broadcast_modules(self.model.net_modules().values())
 
     def save(self, path: str, epoch: int,
              loss_eval: Optional[float] = None) -> None:
@@ -116,13 +129,14 @@ class Trainer:
         for i, (dev_batch, batch, data_time) in enumerate(
                 self._prefetched(data_iter, steps)):
             if training:
-                metrics = self.model.train_step(dev_batch)
+                metrics = self._train_step(dev_batch)
             else:
                 metrics, pred = self.model.eval_step(dev_batch)
                 self._maybe_visualize(epoch, i, pred, batch)
             if sync:
                 torch.cuda.synchronize(self.model.device)
-            base = {"size": len(next(iter(dev_batch.values())))}
+            base = {"size": self.opt.batch_size if mesh.world() > 1
+                    else len(next(iter(dev_batch.values())))}
             if log_time:
                 base["batch_time"] = time.time() - t_end
                 base["data_time"] = data_time
@@ -134,6 +148,17 @@ class Trainer:
         epoch_log = self.cumulator.get_epoch_log()
         logger.on_epoch_end(epoch, epoch_log)
         return epoch_log
+
+    def _train_step(self, dev_batch) -> Dict:
+        self.steps_run += 1
+        if self.steps_run != getattr(self.opt, "profile_step", 0) \
+                or mesh.rank() != 0:
+            return self.model.train_step(dev_batch)
+        path = os.path.join(self.opt.full_logdir, "profile_step.json")
+        metrics, report = profile_step(self.model, dev_batch)
+        with open(path, "w") as f:
+            json.dump({"step": self.steps_run, **report}, f, indent=1)
+        return metrics
 
     def _maybe_visualize(self, epoch: int, batch_idx: int, pred: Dict,
                          batch: Dict) -> None:
@@ -185,3 +210,44 @@ class Trainer:
                                          steps_per_epoch, eval_batches)
         self.logger.on_train_end()
         return last
+
+
+def profile_step(model, dev_batch) -> Tuple[Dict, Dict]:
+    """One ``model.train_step`` under ``torch.profiler``: its metrics, and
+    a report of its wall time, the process's peak device memory so far,
+    its device kernels by name (launches and device ms) and the
+    gradients' all-reduce (the CPU side of its span, and the device time
+    of NCCL's kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cuda = model.device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    sync = (lambda: torch.cuda.synchronize(model.device)) if cuda \
+        else (lambda: None)
+    sync()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        metrics = model.train_step(dev_batch)
+        sync()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = {e.key: {"launches": e.count,
+                       "device_ms": e.self_device_time_total / 1e3}
+               for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)}
+    span = [e for e in events if e.key == mesh.GRAD_SPAN
+            and e.device_type == DeviceType.CPU]
+    return metrics, {
+        "rank": mesh.rank(), "world": mesh.world(),
+        "device": str(model.device),
+        "backend": dist.get_backend() if mesh.joined() else None,
+        "wall_ms": wall * 1e3,
+        "peak_memory_gib": (torch.cuda.max_memory_allocated(model.device)
+                            / 2 ** 30 if cuda else None),
+        "all_reduce_grads": {
+            "calls": sum(e.count for e in span),
+            "cpu_ms": sum(e.cpu_time_total for e in span) / 1e3,
+            "nccl_device_ms": sum(v["device_ms"] for k, v in kernels.items()
+                                  if "nccl" in k.lower())},
+        "kernels": kernels}

@@ -458,3 +458,33 @@ def test_genre_train_step_on_the_card(device):
         assert np.isfinite(logs[0][k])
         # cuDNN vs CPU convolutions in float32 (TF32 off)
         assert abs(logs[0][k] - ref) <= 1e-3 * abs(ref) + 1e-5, (k, logs)
+
+
+def test_batchnorm_on_two_gloo_ranks_on_the_card(device, tmp_path):
+    """Two ranks sharing card 0 over gloo
+    (``tests/_torch_port_dist_cases.py``): a train-mode BatchNorm2d and 3d on the global batch, against one
+    process on the whole batch on the card: outputs and input gradients
+    within 1e-5 of their scale (a rank's input gradient is N times the
+    mean loss's), parameter gradients after the all-reduce, running
+    statistics within 1e-6."""
+    import _torch_port_dist_cases as C
+    cases = ("bn2d", "bn3d")
+    procs = C.spawn_ranks(str(tmp_path), "", "cuda:0", cases)
+    try:
+        ref = C.run_all("", cases, "cuda:0")
+    finally:
+        ranks = C.gather(procs, str(tmp_path))
+    for case in cases:
+        r_ref = ref[case]
+        for r, res in enumerate(ranks):
+            got = res[case]
+            idx = torch.as_tensor(C.mesh.shard_slice(4, 2, r))
+            for k, scale in (("y", 1), ("x_grad", 2), ("weight_grad", 1),
+                             ("bias_grad", 1)):
+                want = r_ref[k][idx] * scale if k in ("y", "x_grad") \
+                    else r_ref[k]
+                err = float((got[k] - want).abs().max())
+                assert err <= 1e-5 * float(want.abs().max()), (case, k, err)
+            for k in ("running_mean", "running_var"):
+                err = float((got[k] - r_ref[k]).abs().max())
+                assert err <= 1e-6, (case, k, err)
