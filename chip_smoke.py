@@ -14,7 +14,10 @@ raising on failure:
     type, with their times, bounds and library calls): the renderer's
     K1/K2 (batch 8, V=128, R=128, S=256, M=192,
     bfloat16, the whole renderer within tests/test_pallas_render.py's
-    bounds), the final deconv K3 (batch 8, Cin=40, S=64, bfloat16) and
+    bounds), the final deconv K3 (batch 8, Cin=40, S=64, bfloat16; and
+    at dec6's Z slab under ``--sp 2``, (4, 40, 64 x 64 x 32) with a halo
+    plane at each end, padded to 40 planes, bfloat16 and float32, beside
+    its plain version and ``F.conv_transpose3d``) and
     the Chamfer kernel K4 (8 x 8192 points, a ragged pair and the eval
     protocol's 1 x 1024), plus float32 checks at smaller sizes with TF32
     off; K1 and K5 also against ``F.grid_sample``, which computes each in
@@ -22,7 +25,9 @@ raising on failure:
     (bit for bit), and one kernel per timed K1, K2, K3 and K5 call
     (torch.profiler; K3 in float32 and K4 too); K1, K2, K3 and K5 at
     edge shapes (V = 34; odd S, S = 1, S > 64, Cin < 16, Cin > 288; V =
-    33, S = 98, groups across a batch boundary), K4 on clouds with exact
+    33, S = 98, groups across a batch boundary; K3 also on boxes and Z
+    slabs, from position 0 or 1, TMA and plain-load staging), K4 on
+    clouds with exact
     copies (ties to the lowest index), and K2's and K5's ValueError for a
     slab larger than shared memory; kernel,
     plain, library and bound times (CUDA events, median of 25, L2 flushed
@@ -31,7 +36,9 @@ raising on failure:
  3. reconstruct: 16 generated photo + mask PNGs, a seeded GenreNet
     exported to a checkpoint in the JAX package's format,
     ``genre_shapehd_tpu_torch.cli.test`` at 256² -> 128³ in bfloat16,
-    batch 8, on the card; launch counts of K1/K2/K3; the .npz files, and
+    batch 8, on the card, with scripts/test_genre.sh's ``--suffix
+    '{net}'`` (the output in ``<--output_dir>_genre_full_model``); launch
+    counts of K1/K2/K3; the .npz files, and
     the visualizer's photo copies and .obj meshes, which must parse; then
     the users' default command, ``cli.test`` with no ``--dtype``
     (float32, PyTorch's default TF32 settings), one K3 launch a forward;
@@ -116,6 +123,16 @@ raising on failure:
     1 within 1e-4, WGAN-GP's 2e-3 for its gradient penalty; steps 2 and
     3 within 1e-3).  Two ranks on one card show the cost of the gloo
     transport, not a scaling.
+11. spatial parallelism: ``cli.train --multihost --sp 2`` on 2 gloo
+    ranks sharing card 0 (dp 1 x sp 2), GenRe's joint step with phase
+    10's flags and seed (4 steps): each rank runs the 2D nets on the
+    whole batch and the 3D U-Net on its half of the Z axis (halo
+    exchanges, the 4³ gather, dec6 on K3 at the slab shape).  ``[sp]``
+    line: losses and their relative difference from phase 10's one
+    process (step 1 within 1e-4, steps 2 and 3 within 1e-3), step time,
+    peak memory per rank, the ranks' parameter hashes (equal), rank 0's
+    profiled step's kernels, K3's slab launches by shape and the ``sp.halo``
+    and ``sp.gather`` spans.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Scratch files go to build/chip_smoke/ under the repository.
@@ -143,6 +160,10 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12         # bfloat16 tensor cores, dense
 DEC6 = dict(b=8, cin=40, s=64)   # dec6 of the 3D U-Net at 128³, nf 20
+#: dec6 on rank 0's Z slab under ``cli.train --sp 2`` at batch 4: 32 own
+#: planes with a halo plane at each end, zero planes up to 40 (the halo
+#: exchange pads to a multiple of 8 for TMA's 16-byte rows)
+DEC6_SLAB = dict(b=4, cin=40, s=64, zs=32, z=40)
 TRAIN = dict(batch=4, steps=8)   # cli.train: batch, steps of each kind
 SOURCES = {
     "render_stage1": "genre_shapehd_tpu_torch/csrc/render_kernel.cu",
@@ -441,6 +462,121 @@ def log_plan(what, v, m, dtype, ms, bnd):
         f"{bnd[2] / ms / 1e6:.0f} GB/s")
 
 
+def k3_check(x, w, bias, z_lo=0, z_out=None):
+    """K3 on ``x`` against its plain version, synchronized: float32 within
+    1e-5 of the output's scale; bfloat16 by :func:`k3_bf16_within` against
+    the float32 result of the rounded inputs.  Returns (max, mean) abs
+    error over the scale, the kernel's and the plain version's distance
+    from the float32 result in u (bf16; else None), and whether the plain
+    version's bound was waived."""
+    import torch
+    import torch.nn.functional as F
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    b, _, nx, ny, nz = x.shape
+    z_out = nz - 2 * z_lo if z_out is None else z_out
+    out = sk.deconv_final(x, w, bias, z_lo, z_out)
+    torch.cuda.synchronize()
+    shape = (b, 1, 2 * nx, 2 * ny, 2 * z_out)
+    check(out.shape == shape and out.dtype == x.dtype,
+          f"K3 output {tuple(out.shape)} {out.dtype} for x "
+          f"{tuple(x.shape)} z{z_lo}+{z_out}")
+    ref = sk.deconv_final_plain(x, w, bias, z_lo, z_out).float()
+    scale = float(ref.abs().max())
+    d = (out.float() - ref).abs()
+    err = (float(d.max()) / scale, float(d.mean()) / scale)
+    what = f"K3 at {tuple(x.shape)} z{z_lo}+{z_out} {str(x.dtype)[6:]}"
+    if x.dtype == torch.float32:
+        check(err[0] <= 1e-5, f"{what}: {err[0]} of the scale {scale}")
+        return err, None, False
+    exact = F.conv_transpose3d(x.float(), w.to(torch.bfloat16).float(),
+                               bias, stride=2, padding=1)[
+        ..., 2 * z_lo:2 * (z_lo + z_out)]
+    e = float((out.float() - exact).abs().max())
+    e_plain = float((ref - exact).abs().max())
+    u = 2.0 ** -8 * float(exact.abs().max())
+    ok, waived = k3_bf16_within(float(d.max()), float(d.mean()), e,
+                                e_plain, scale, float(exact.abs().max()))
+    check(ok, f"{what}: {float(d.max())} {float(d.mean())} vs plain, {e} "
+              f"vs float32, the plain version {e_plain} vs float32, scale "
+              f"{scale}")
+    if waived:
+        log(f"[kernels] {what}: the plain version lies {e_plain / u:.2f} u "
+            f"(2^-8 of the largest magnitude) from the float32 result, "
+            f"beyond the 1.5 u its 1e-2 bound presumes; the kernel, "
+            f"{e / u:.2f} u from it, is held to 1 u alone")
+    return err, [e / u, e_plain / u], waived
+
+
+def k3_slab_row(device, g, dtype):
+    """K3 at dec6's Z slab (``DEC6_SLAB``) in ``dtype``, against its plain
+    version (:func:`k3_check`): the x a rank of ``cli.train --sp 2``
+    hands it (a neighbour's plane at each end, zero planes after), its
+    call, the plain version's, the one library call of the same function
+    (``F.conv_transpose3d`` of the 34 planes with the Z padding that
+    crops to the slab's output), and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    b, cin, s, zs, z = (DEC6_SLAB[k] for k in ("b", "cin", "s", "zs", "z"))
+    dt = getattr(torch, dtype)
+    x = torch.zeros((b, cin, s, s, z), device=device, dtype=dt)
+    x[..., :zs + 2] = torch.randn((b, cin, s, s, zs + 2), generator=g,
+                                  device=device).to(dt)
+    w = torch.randn((cin, 1, 4, 4, 4), generator=g, device=device) * 0.05
+    bias = torch.full((1,), 0.1, device=device)
+    err, us, _ = k3_check(x, w, bias, 1, zs)
+    wl, bl = w.to(dt), bias.to(dt)
+    lib = lambda: F.conv_transpose3d(                       # noqa: E731
+        x[..., :zs + 2], wl, bl, stride=2, padding=(1, 1, 3))
+    ref = sk.deconv_final_plain(x, w, bias, 1, zs).float()
+    d = float((lib().float() - ref).abs().max()) / float(ref.abs().max())
+    # float32: summation order; bf16: two roundings of the library's
+    check(d <= (1e-5 if dt == torch.float32 else 2.0 ** -6),
+          f"the slab's library call vs plain: {d} of the scale")
+    del ref
+    # the bytes the function needs: its own zs planes and a halo plane at
+    # each end (not the zero planes after them, which only TMA's 16-byte
+    # rows ask for), the weight, the bias and the 2 zs output planes
+    e = x.element_size()
+    n_in = b * cin * s * s * (zs + 2)
+    n_out = b * (2 * s) ** 2 * 2 * zs
+    return dict(
+        shape=[b, cin, s, s, z], z_lo=1, z_out=zs, dtype=dtype,
+        max_abs_err=err[0], mean_abs_err=err[1], u_vs_float32=us,
+        call=lambda: sk.deconv_final(x, w, bias, 1, zs),
+        plain=lambda: sk.deconv_final_plain(x, w, bias, 1, zs),
+        library=lib,
+        bound=bound(n_in * e + cin * 64 * 4 + 4 + n_out * e,
+                    2.0 * 8 * cin * n_out,
+                    H100_BF16_FLOPS if dt == torch.bfloat16
+                    else H100_F32_FLOPS))
+
+
+def phase_deconv_final_slab(device, flush):
+    """K3 at dec6's Z slab under ``cli.train --sp 2`` (``DEC6_SLAB``), in
+    bfloat16 and float32 (TF32 off), against its plain version and timed
+    beside it, the library call and the bound."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(21)
+    rows = {}
+    for dtype in ("bfloat16", "float32"):
+        row = k3_slab_row(device, g, dtype)
+        bms, by, nbytes = row.pop("bound")
+        for fn, key in (("call", "ms"), ("plain", "plain_ms"),
+                        ("library", "library_ms")):
+            row[key] = time_ms(row.pop(fn), flush)
+        row.update(bound_ms=bms, bound_by=by, bound_share=bms / row["ms"],
+                   achieved_gb_per_s=nbytes / row["ms"] / 1e6)
+        rows[dtype] = row
+        log(f"[kernels] K3 at dec6's --sp 2 slab {row['shape']} z1+"
+            f"{row['z_out']} {dtype}: {row['ms']:.4f} ms, bound "
+            f"{bms * 1e3:.1f} us ({by}), {100 * bms / row['ms']:.1f} % of "
+            f"it; plain {row['plain_ms']:.4f} ms; library "
+            f"{row['library_ms']:.4f} ms; max/mean abs err of the scale "
+            f"{row['max_abs_err']:.3g}/{row['mean_abs_err']:.3g}")
+    return rows
+
+
 def phase_deconv_final(device, flush):
     """K3 against ``F.conv_transpose3d`` (its plain version and the
     library call) at dec6's shape, and in float32 at a smaller size."""
@@ -674,11 +810,14 @@ def phase_main_path(device, work):
     calibrate(net, *scene_batch(2, 256, device, 1))
     ckpt = os.path.join(work, "genre_full.pt")
     save_checkpoint(ckpt, net_payload(*torch_to_jax(net.state_dict())))
-    out_dir = os.path.join(work, "out")
+    # scripts/test_genre.sh's --suffix '{net}': the output goes to
+    # <--output_dir>_genre_full_model
+    out_dir = os.path.join(work, "out_genre_full_model")
     argv = ["--net", "genre_full_model", "--net_file", ckpt,
             "--input_rgb", os.path.join(photos, "*_rgb.png"),
             "--input_mask", os.path.join(photos, "*_silhouette.png"),
-            "--output_dir", out_dir, "--overwrite", "--dtype", "bfloat16",
+            "--output_dir", os.path.join(work, "out"), "--suffix", "{net}",
+            "--overwrite", "--dtype", "bfloat16",
             "--batch_size", "8", "--workers", "4", "--vis_workers", "6",
             "--device", "cuda"]
     rk.reset_launches()
@@ -689,6 +828,8 @@ def phase_main_path(device, work):
     seconds = time.perf_counter() - t0
     launches = {**rk.launches, **sk.launches}
     check(rc == 0, f"cli.test returned {rc}")
+    check(not os.path.exists(os.path.join(work, "out")),
+          "cli.test --suffix '{net}' wrote to the unsuffixed directory")
     npz = sorted(glob.glob(os.path.join(out_dir, "*.npz")))
     check(len(npz) == 2, f"expected 2 batch files, got {npz}")
     for path in npz:
@@ -714,10 +855,10 @@ def phase_main_path(device, work):
 
     # the users' default command: no --dtype (float32), under PyTorch's
     # default TF32 settings (cuDNN on, matmul off), not main()'s
-    out32 = os.path.join(work, "out_f32")
+    out32 = os.path.join(work, "out_f32_genre_full_model")
     i = argv.index("--dtype")
     argv32 = argv[:i] + argv[i + 2:]
-    argv32[argv32.index("--output_dir") + 1] = out32
+    argv32[argv32.index("--output_dir") + 1] = os.path.join(work, "out_f32")
     rk.reset_launches()
     sk.reset_launches()
     was = (torch.backends.cudnn.allow_tf32,
@@ -1332,6 +1473,26 @@ def phase_edge_shapes(device):
             continue
         raise AssertionError(f"{fn.__name__} took a 395 KB slab")
     check(set(rk.launches.values()) == {0}, f"launched: {rk.launches}")
+    # K3 on boxes and Z slabs (the sharded U-Net's dec6): positions from 0
+    # or 1, Z not a multiple of 8 (plain-load staging), Z > 64 (two k
+    # tiles), Cin > 288
+    g = torch.Generator(device=device).manual_seed(15)
+    for shape, z_lo, z_out in (((2, 40, 8, 16, 40), 1, 32),
+                               ((1, 7, 9, 5, 12), 1, 10),
+                               ((1, 5, 6, 10, 34), 1, 32),
+                               ((1, 3, 5, 7, 72), 1, 70),
+                               ((1, 3, 4, 4, 16), 0, 5),
+                               ((1, 300, 8, 8, 24), 1, 22)):
+        for dt in (bf, f32):
+            x = torch.randn(shape, generator=g, device=device).to(dt)
+            w = torch.randn((shape[1], 1, 4, 4, 4), generator=g,
+                            device=device) * 0.2
+            err, us, _ = k3_check(x, w, torch.full((1,), 0.3, device=device),
+                                  z_lo, z_out)
+            key = f"K3 {shape} z{z_lo}+{z_out} {str(dt)[6:]}"
+            worst[key] = err[0]
+            if us:
+                worst[f"{key}: kernel, plain vs float32 (u)"] = us
     log(f"[kernels] edge shapes, max abs err (K3: of the scale) vs plain: "
         f"{json.dumps({k: _sig(v) for k, v in worst.items()})}; "
         f"a (384, 256) float32 slab raises ValueError")
@@ -2596,6 +2757,8 @@ def _dp_run(work, name, nproc, argv):
                 seconds=seconds, ranks=ranks, launches=launches,
                 peak_gib=prof["peak_memory_gib"] or float("nan"),
                 all_reduce=prof["all_reduce_grads"],
+                spans=prof.get("spans", {}),
+                k3_slabs=prof.get("k3_slabs", {}),
                 profiled_ms=prof["wall_ms"])
 
 
@@ -2711,6 +2874,81 @@ def phase_dp(work):
     return runs
 
 
+def phase_sp(work, dp):
+    """Spatial parallelism: ``cli.train --multihost --sp 2`` on 2 gloo
+    ranks sharing card 0 (dp 1 x sp 2), GenRe's joint step with phase
+    10's flags and seed (float32, TF32 off, full width, global batch 4,
+    4 steps): each rank runs the 2D nets on the whole batch and the 3D
+    U-Net on its half of the Z axis.  Fails when a rank exits non-zero,
+    the ranks' parameter hashes differ, a loss is off phase 10's
+    one-process run (relative: step 1 by 1e-4, steps 2 and 3 by 1e-3;
+    step 4 logged), rank 0's profiled step lacks a kernel of the
+    one-process run, K3 at dec6's slab shape (``DEC6_SLAB``: 4 x 40 x
+    64 x 64 x 40 planes, positions 1 .. 32) or a halo or gather span."""
+    b, steps = DP["batch"], DP["steps"]
+    argv = ["--dataset", "synthetic", "--batch_size", str(b),
+            "--synthetic_length", str(b), "--epoch", "1",
+            "--eval_batches", "0", "--workers", "4", "--log_time",
+            "--log_batch", "--manual_seed", "0", "--save_net", "0",
+            "--vis_batches_vali", "0", "--lr", "1e-4", "--net",
+            "genre_full_model", "--joint_train", "--pred_depth_minmax",
+            "--surface_weight", "10", "--epoch_batches", str(steps),
+            "--profile_step", str(steps), "--device", "cuda:0",
+            "--dist_backend", "gloo", "--sp", "2"]
+    run = _dp_run(work, "joint_sp2_gloo_2ranks", 2, argv)
+    ref = dp["joint_1proc"]
+    hashes = {v["sha1"] for v in run["ranks"].values()}
+    check(len(hashes) == 1, f"[sp] the ranks' parameters differ: "
+          f"{run['ranks']}")
+    check(len(run["loss"]) == len(ref["loss"]), f"[sp] {len(run['loss'])} "
+          f"steps")
+    rel = [{k: _rel(g[k], r[k]) for k in r}
+           for g, r in zip(run["terms"], ref["terms"])]
+    run["rel_loss"] = [r["loss"] for r in rel]
+    later = max(r["loss"] for r in rel[1:3])
+    missing = [k for k, n in ref["launches"].items()
+               if n and not run["launches"][k]]
+    slab = (f"{DEC6_SLAB['b']}x{DEC6_SLAB['cin']}x{DEC6_SLAB['s']}x"
+            f"{DEC6_SLAB['s']}x{DEC6_SLAB['z']} z1+{DEC6_SLAB['zs']}")
+    spans, k3_spans = run["spans"], run["k3_slabs"]
+    halo = spans.get("sp.halo", {"calls": 0, "cpu_ms": 0.0})
+    gather = spans.get("sp.gather", {"calls": 0, "cpu_ms": 0.0})
+    log(f"[sp] joint_sp2_gloo_2ranks (dp 1 x sp 2 on card 0): losses "
+        f"{run['loss']}; relative difference from joint_1proc by step "
+        f"{[float(f'{r:.3g}') for r in run['rel_loss']]} (step 1 bound "
+        f"1e-4, steps 2-3 1e-3); step 1 by term "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in rel[0].items()})}"
+        f"; step {run['step_ms']:.1f} ms (median of steps 2..{steps - 1}; "
+        f"the last one profiled, {run['profiled_ms']:.1f} ms); peak memory "
+        f"{run['peak_gib']:.2f} GiB (rank 0, up to its profiled step)"
+        + "".join(f"; rank {k} {v['peak_gib']:.2f} GiB at its end"
+                  for k, v in sorted(run["ranks"].items()))
+        + f"; parameter sha1 {sorted(hashes)}; launches on rank 0 "
+        f"(profiled step) {json.dumps(run['launches'])}; K3 on slabs "
+        f"{json.dumps(k3_spans)}; sp.halo {halo['calls']} calls "
+        f"{halo['cpu_ms']:.1f} ms, sp.gather {gather['calls']} calls "
+        f"{gather['cpu_ms']:.1f} ms (host clock, of the profiled step's "
+        f"{run['profiled_ms']:.1f} ms: "
+        f"{100 * (halo['cpu_ms'] + gather['cpu_ms']) / run['profiled_ms']:.1f}"
+        f" %); gradient all-reduce {json.dumps(run['all_reduce'])}; "
+        f"{run['seconds']:.1f} s wall")
+    check(rel[0]["loss"] <= 1e-4 and later <= 1e-3,
+          f"[sp] losses {run['terms']} vs {ref['terms']}")
+    check(not missing, f"[sp] {missing} not launched on rank 0 (the "
+          f"one-process run launched them)")
+    check(any(slab in k for k in k3_spans), f"[sp] K3 not at dec6's slab "
+          f"{slab} on rank 0: {k3_spans}")
+    check(halo["calls"] > 0 and gather["calls"] > 0,
+          f"[sp] no halo or gather span on rank 0: {spans}")
+    for r, v in run["ranks"].items():
+        idle = [k for k, n in ref["launches"].items()
+                if n and not v["launches"].get(k)]
+        check(not idle, f"[sp] rank {r}'s wrappers counted no launch of "
+              f"{idle}: {v['launches']}")
+    run.update(k3_spans=k3_spans, halo=halo, gather=gather)
+    return run
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2761,6 +2999,7 @@ def main() -> int:
     k3 = "deconv_final"
     errs[k3], ms[k3], plain_ms[k3], library_ms[k3], bounds[k3] = \
         phase_deconv_final(device, flush)
+    k3_slab = phase_deconv_final_slab(device, flush)
     k4, timed, eval_shape = "nn_min_dist", (8, 8192, 8192), (1, 1024, 1024)
     errs[k4], k4_times = phase_nn_min_dist(device, flush)
     ms[k4], plain_ms[k4], library_ms[k4], bounds[k4] = (
@@ -2793,6 +3032,7 @@ def main() -> int:
     exact = phase_exact_render(device, flush)
     del flush
     dp = phase_dp(work)
+    sp = phase_sp(work, dp)
 
     kernels = []
     for name in ("render_stage1", "render_stage2_scan", k3, k4, k5):
@@ -2817,7 +3057,9 @@ def main() -> int:
                                      if "launches" in r),
             # rank 0's profiled step of each phase-10 run
             "launches_dp": {k: r["launches"].get(name, 0)
-                            for k, r in dp.items()}})
+                            for k, r in dp.items()},
+            # rank 0's profiled step of phase 11 (dp 1 x sp 2)
+            "launches_sp": sp["launches"].get(name, 0)})
     # K4 is timed at 8 x 8192 x 8192 points; the scoring path gives it the
     # eval protocol's 1 x 1024 x 1024, where launch latency dominates
     ev = k4_times[eval_shape]
@@ -2831,7 +3073,8 @@ def main() -> int:
     by_name[k5].update(timed_shape=[TRAIN["batch"], MAIN["r"], MAIN["r"],
                                     MAIN["z"]])
     by_name[k3].update(hmma_in_sass=sum(hmma.values()),
-                       marrnet_shapehd=family_k3)
+                       marrnet_shapehd=family_k3, sp_slab=k3_slab,
+                       sp_slab_launches=sp["k3_spans"])
     # the default command's type at the main path's shapes
     for name, row in f32_rows.items():
         by_name[name]["float32"] = row
@@ -2870,6 +3113,8 @@ def main() -> int:
                     for k, v in exact.items())
         + "; data parallel, float32 unless named, batch 4: "
         + ", ".join(f"{k} {v['step_ms']:.1f} ms" for k, v in dp.items())
+        + f"; spatial parallel (dp 1 x sp 2, 2 gloo ranks on the card), "
+        f"float32, batch 4: {sp['step_ms']:.1f} ms"
         + f"; total {time.perf_counter() - t_start:.0f} s")
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,16 +1,19 @@
 """CLI flags (counterpart of ``genre_shapehd_tpu/cli/options.py``): the
 train flags, parsed in two stages (general flags, then the chosen
 model's and dataset's ``add_arguments``, each of which names the
-``unique_params`` that a resume does not overwrite); the test flags of
-the inference path; ``--device`` for both, and for training
-``--multihost`` with its transport ``--dist_backend``.
+``unique_params`` that a resume does not overwrite; ``--printhelp``
+prints the help of all of them); the test flags, the general ones and
+the inference path's I/O parsed the same way with the model's; so the
+command lines of ``scripts/*.sh`` run with the module swapped.
+``--device`` for both, and for training ``--multihost`` with its
+transport ``--dist_backend`` and ``--sp``.
 """
 
 from __future__ import annotations
 
 import argparse
 import pickle
-from typing import Set, Tuple
+from typing import Optional, Set, Tuple
 
 from ..core.device import device_name
 from ..core.registry import get_dataset, get_model
@@ -21,7 +24,7 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> Set[str]:
     plus ``--device``; returns the general ``unique_params``."""
     unique_params = {"resume", "epoch", "workers", "batch_size", "save_net",
                      "epoch_batches", "logdir", "device", "multihost",
-                     "dist_backend", "profile_step"}
+                     "dist_backend", "profile_step", "sp"}
     add = parser.add_argument
     add("--manual_seed", type=int, default=None,
         help="seed of the weights, the shuffling and the augmentation")
@@ -95,6 +98,12 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> Set[str]:
     add("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
         help="the ranks' transport under --multihost (default: nccl on a "
              "card, gloo on --device cpu)")
+    add("--sp", type=int, default=1,
+        help="spatial-parallel mesh width: devices form a "
+             "(n_devices/sp, sp) mesh and large voxel activations shard "
+             "their Z axis across sp (needs --multihost and a number of "
+             "ranks that sp divides; GenRe's 3D U-Net shards, the rest "
+             "runs on every sp rank)")
     add("--profile_step", type=int, default=0,
         help="run train step N (counted from 1 in this run) under "
              "torch.profiler on rank 0 and write its kernels and "
@@ -102,17 +111,35 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> Set[str]:
     return unique_params
 
 
-def parse_train(argv=None) -> Tuple[argparse.Namespace, Set[str]]:
-    """General flags first, then the model's and the dataset's."""
+def train_parser(net: str, dataset: Optional[str] = None
+                 ) -> Tuple[argparse.ArgumentParser, Set[str]]:
+    """The train parser with the general flags, ``--printhelp``, and the
+    flags of ``dataset`` (if any) and of model ``net``; and the
+    ``unique_params``."""
     parser = argparse.ArgumentParser(
         description="GenRe training (PyTorch port)")
     unique_params = add_train_arguments(parser)
-    first, _ = parser.parse_known_args(argv)
-    if first.dataset is not None:
-        parser, u = get_dataset(first.dataset).add_arguments(parser)
+    parser.add_argument("--printhelp", action="store_true",
+                        help="print the help, the model's and the "
+                             "dataset's flags included, and exit")
+    if dataset is not None:
+        parser, u = get_dataset(dataset).add_arguments(parser)
         unique_params |= u
-    parser, u = get_model(first.net).add_arguments(parser)
-    unique_params |= u
+    parser, u = get_model(net).add_arguments(parser)
+    return parser, unique_params | u
+
+
+def parse_train(argv=None) -> Tuple[argparse.Namespace, Set[str]]:
+    """General flags first, then the model's and the dataset's;
+    ``--printhelp`` prints the help of all of them and exits 0."""
+    general = argparse.ArgumentParser(add_help=False)
+    add_train_arguments(general)
+    general.add_argument("--printhelp", action="store_true")
+    first, _ = general.parse_known_args(argv)
+    parser, unique_params = train_parser(first.net, first.dataset)
+    if first.printhelp:
+        parser.print_help()
+        raise SystemExit(0)
     return parser.parse_args(argv), unique_params
 
 
@@ -134,38 +161,32 @@ def overwrite_opt(opt: argparse.Namespace, saved: dict,
     return opt
 
 
-def parse_test(argv=None) -> argparse.Namespace:
+def test_parser(net: str) -> argparse.ArgumentParser:
+    """The test parser: the general flags, the inference path's I/O and
+    the flags of test model ``net``."""
     p = argparse.ArgumentParser(
         description="GenRe inference on photos + masks (PyTorch port)")
-    p.add_argument("--net", type=str, required=True, help="model alias")
-    p.add_argument("--net_file", type=str, required=True,
-                   help="checkpoint in the JAX package's format")
-    p.add_argument("--marrnet1_file", type=str, default=None,
-                   help="(shapehd) the MarrNet-1 checkpoint")
+    add_train_arguments(p)
     p.add_argument("--input_rgb", type=str, required=True,
                    help="glob pattern for rgb images (PNG)")
     p.add_argument("--input_mask", type=str, default=None,
                    help="glob pattern for object masks (PNG)")
-    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--net_file", type=str, required=True,
+                   help="checkpoint in the JAX package's format")
+    p.add_argument("--output_dir", type=str, required=True,
+                   help="output directory, with _<--suffix> appended")
     p.add_argument("--overwrite", action="store_true")
-    p.add_argument("--batch_size", type=int, default=16)
-    p.add_argument("--workers", type=int, default=4,
-                   help="data-loading worker threads")
-    p.add_argument("--vis_workers", type=int, default=4,
-                   help="visualizer threads (0: write synchronously)")
-    p.add_argument("--vis_param_f", type=str, default=None,
-                   help='JSON file {"voxel": {"isosurf_thres": x}}')
-    p.add_argument("--im_size", type=int, default=256)
-    p.add_argument("--vox_res", type=int, default=128)
-    p.add_argument("--sph_res", type=int, default=128)
-    p.add_argument("--z_res", type=int, default=256)
-    p.add_argument("--padding_margin", type=int, default=16)
-    p.add_argument("--dtype", type=str, default="float32",
-                   choices=("float32", "bfloat16"),
-                   help="compute dtype of the nets and the renderer")
-    p.add_argument("--device", type=device_name, default="cuda",
-                   help="cuda (default; raises when no GPU is present), "
-                        "cuda:N or cpu")
-    opt = p.parse_args(argv)
+    p.add_argument("--marrnet1_file", type=str, default=None,
+                   help="(shapehd) the MarrNet-1 checkpoint")
+    return get_model(net, test=True).add_arguments(p)[0]
+
+
+def parse_test(argv=None) -> argparse.Namespace:
+    """The general flags and the inference path's I/O first, then the
+    model's (as the JAX ``parse_test``); the dataset is ``test``."""
+    general = argparse.ArgumentParser(add_help=False)
+    add_train_arguments(general)
+    first, _ = general.parse_known_args(argv)
+    opt = test_parser(first.net).parse_args(argv)
     opt.dataset = "test"
     return opt

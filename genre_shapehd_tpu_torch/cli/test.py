@@ -3,9 +3,15 @@
   python -m genre_shapehd_tpu_torch.cli.test --net genre_full_model \\
       --net_file full_model.pt \\
       --input_rgb 'photos/*_rgb.png' --input_mask 'photos/*_silhouette.png' \\
-      --output_dir output/test --overwrite --dtype bfloat16 --device cuda
+      --output_dir output/test --suffix '{net}' --overwrite \\
+      --dtype bfloat16 --device cuda
 
-Writes one ``batch%04d.npz`` per batch (pred_voxel, pred_proj_depth,
+It takes the command lines of ``scripts/test_*.sh`` with the module
+swapped, the model's flags included (``--decoder_width``,
+``--f32_heads`` and ``--exact_render`` build GenRe's net as the
+checkpoint was trained).  The output directory is ``--output_dir``,
+with ``_<--suffix>`` (formatted with the options) appended when one is
+given.  Writes one ``batch%04d.npz`` per batch (pred_voxel, pred_proj_depth,
 pred_proj_sph_full, rgb_path) and, under ``batch%04d/``, a copy of each
 photo and the iso-surface meshes (.obj) of the three voxel grids.
 """
@@ -25,6 +31,8 @@ from . import options
 def main(argv=None) -> int:
     opt = options.parse_test(argv)
     resolve_device(opt.device)           # no GPU with --device cuda: raise
+    if opt.suffix:
+        opt.output_dir += "_" + opt.suffix.format(**vars(opt))
     print("[setup] output directory", opt.output_dir)
     if os.path.isdir(opt.output_dir):
         if not opt.overwrite:

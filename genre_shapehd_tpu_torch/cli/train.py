@@ -25,6 +25,16 @@ each rank loads its slice of it):
   python -m torch.distributed.run --nproc_per_node N \\
       -m genre_shapehd_tpu_torch.cli.train --multihost <the flags above>
 
+With ``--sp S`` the ranks form a (N / S, S) grid: the S ranks of a dp
+index load the same slice, and GenRe's 3D U-Net runs on Z slabs across
+them (``parallel/mesh.py``, ``nn/unet3d.py``); other models replicate
+over sp.  S must divide N (the JAX package drops the spare devices
+instead).  On the CPU, two ranks of one process each:
+
+  python -m torch.distributed.run --nproc_per_node 2 \\
+      -m genre_shapehd_tpu_torch.cli.train --multihost --sp 2 \\
+      --device cpu --dist_backend gloo <the flags above>
+
 Rank 0 alone writes the logdir; its checkpoints have the format of a
 one-process run's.  Each rank ends with a line ``[dp] rank r of N:
 parameters and buffers sha1 <hex>[; peak device memory <x> GiB]; kernel
@@ -85,6 +95,9 @@ def main(argv=None) -> int:
             "--multihost; pass it, or each would train a copy of its own")
     if opt.dist_backend is not None and not opt.multihost:
         raise ValueError("--dist_backend needs --multihost")
+    if opt.sp != 1 and not opt.multihost:
+        raise ValueError(f"--sp {opt.sp} needs --multihost: the Z slabs "
+                         "of --sp are held by the ranks of a group")
     # no GPU with --device cuda: raise
     device = resolve_device(opt.device, mesh.local_rank()
                             if opt.multihost else None)
@@ -96,7 +109,7 @@ def main(argv=None) -> int:
         torch.cuda.set_device(device)
     opt.device = str(device)
     mesh.join(opt.dist_backend or ("nccl" if device.type == "cuda"
-                                   else "gloo"), device)
+                                   else "gloo"), device, sp=opt.sp)
     try:
         return train(opt, unique_params)
     finally:
@@ -122,8 +135,9 @@ def train(opt, unique_params) -> int:
     model = get_model(opt.net)(opt)
     if lead:
         print("[setup] model", type(model).__module__, "on", model.device,
-              "in", opt.dtype, *(["on", mesh.world(), "ranks"]
-                                 if opt.multihost else []))
+              "in", opt.dtype, *([
+                  "on", mesh.world(), "ranks", f"(dp {mesh.size(mesh.DP)} "
+                  f"x sp {mesh.size(mesh.SP)})"] if opt.multihost else []))
     # rank 0 writes; every rank stops on a NaN, which all of them see
     loggers = [TerminateOnNaN()]
     if lead:
@@ -162,8 +176,10 @@ def train(opt, unique_params) -> int:
     dataset_cls = get_dataset(opt.dataset)
     ds_train = dataset_cls(opt, mode="train", model=model)
     ds_vali = dataset_cls(opt, mode="vali", model=model)
-    # every rank draws the same batches and loads its slice of each
-    shard = dict(shard_id=mesh.rank(), num_shards=mesh.world())
+    # every rank draws the same batches and loads its dp index's slice of
+    # each (the sp ranks of a dp index load the same one)
+    shard = dict(shard_id=mesh.index(mesh.DP),
+                 num_shards=mesh.size(mesh.DP))
     train_loader = DataLoader(ds_train, opt.batch_size, opt.workers,
                               shuffle=True, seed=seed, drop_last=True,
                               **shard)

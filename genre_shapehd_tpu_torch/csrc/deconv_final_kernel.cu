@@ -10,12 +10,15 @@
 // wherever it likes, so here one kernel does the contraction and writes
 // the interleaved output directly; no phase tensor exists.
 //
-// Layout (PyTorch's): x (B, Cin, S, S, S), weight (Cin, 1, 4, 4, 4) given
+// Layout (PyTorch's): x (B, Cin, X, Y, Z), weight (Cin, 1, 4, 4, 4) given
 // as float32 (Cin, 64) and rounded to x's dtype by the kernel, bias (1,)
-// float32 -> out (B, 1, 2S, 2S, 2S).
+// float32 -> out (B, 1, 2X, 2Y, 2 Zo): the output planes of the Zo input
+// positions klo .. klo + Zo - 1 along k (Z); klo 0 and Zo = Z for the
+// whole layer, klo 1 and Zo = Z - 2 (or fewer) for a Z slab of the
+// sharded 3D U-Net whose first and last planes are its neighbours' halo.
 // Per axis, output o = 2p + a (a in {0,1}) takes inputs p + d - 1 for
 // the offsets d in {0,1,2} with d - a in {0,1}, through tap 3 + a - 2d,
-// zero outside [0, S).
+// zero outside the input's extent.
 //
 // What bounds it: device-memory bytes.  At the main path's shape (B=8,
 // Cin=40, S=64, bf16) it reads 168 MB and writes 34 MB, 60 us at
@@ -36,7 +39,7 @@
 //     per (16 positions, 16 channels) instead of 27, 29 GFLOP in all at
 //     Cin_pad = 48, 29 us at the dense bf16 peak;
 //   - a tile is a 4 x 4 block of (i, j) rows, one warp each, over the
-//     whole k axis (S <= 64).  Per chunk of 16 channels one TMA copy
+//     whole k axis (Z <= 64).  Per chunk of 16 channels one TMA copy
 //     stages the tile with a one-row halo in i and j, (6, 6, 16, 64)
 //     bf16 = 72 KB, zero-filled outside the volume and past Cin, with the
 //     128-byte swizzle that keeps ldmatrix free of bank conflicts; the
@@ -55,7 +58,7 @@
 // which TF32 cannot hold, and 3xTF32 on this GEMM would carry its
 // structured zeros: 2.25x the useful products three times over, no faster
 // than the CUDA cores' 160 us) and the bf16 shapes this tiling does not
-// take (S > 64, S not a multiple of 8, Cin > 288) run on the CUDA cores:
+// take (Z > 64, Z not a multiple of 8, Cin > 288) run on the CUDA cores:
 //   - per axis, output 2p + a takes input p + d - 1 through tap 3 + a -
 //     2d for d - a in {0, 1}, so one input value feeds 4 (output, tap)
 //     pairs per axis, 64 in 3-D;
@@ -72,7 +75,7 @@
 //     values a channel (rows of 72 floats, 80 bf16, from 16 bytes before
 //     the tile: TMA wants a box's innermost start 16-byte aligned),
 //     zero-filled outside the volume and past Cin; where TMA cannot
-//     describe x (rows not whole 16-byte units: S not a multiple of 4,
+//     describe x (rows not whole 16-byte units: Z not a multiple of 4,
 //     of 8 in bf16) the threads stage it with plain loads, which nothing
 //     overlaps (7x the TMA variant's time at dec6's float32 shape);
 //   - persistent blocks, one per SM, walk the tiles; two stages, so the
@@ -172,7 +175,7 @@ __device__ void build_b(const float* __restrict__ w, uint32_t* bs, int Cin,
 
 // A stage holds the tile of chunk c0 at (b, i0, j0): rows r = (hi * kHJ
 // + hj) * kCh + c of 64 positions k (128 bytes) for input (i0 - 1 + hi,
-// j0 - 1 + hj, channel c0 + c), zero outside the volume, past S and past
+// j0 - 1 + hj, channel c0 + c), zero outside the volume, past Z and past
 // Cin (TMA's fill).  The 16-byte chunk k / 8 of row r sits at chunk
 // (k / 8) ^ (r % 8): TMA's 128-byte swizzle, which puts the 8 channel rows
 // an ldmatrix reads in 8 bank groups.
@@ -181,16 +184,20 @@ __device__ void build_b(const float* __restrict__ w, uint32_t* bs, int Cin,
 // item b, rows i0 .. i0+kTI-1, j0 .. j0+kTJ-1, all k.  Its steps are the
 // channel chunks.  Thread 0 starts the next step's copy (the next tile's
 // first chunk at a tile's end) into the other stage before the current
-// step computes.  Warp (wi, wj) owns row (i0 + wi, j0 + wj).
+// step computes.  Warp (wi, wj) owns row (i0 + wi, j0 + wj).  kCube: the
+// whole layer on a cube (Y = Zo = X, klo = 0), the main path's call, with
+// no more live values than that needs.
+template <bool kCube>
 __global__ void __launch_bounds__(kWarps * 32, 1)
 deconv_final_mma_kernel(__grid_constant__ const CUtensorMap tmap,
                         const float* __restrict__ w,
                         const float* __restrict__ bias,
                         __nv_bfloat16* __restrict__ out, int B, int Cin,
-                        int S) {
+                        int X, int Y_, int klo_, int Zo_) {
+  const int Y = kCube ? X : Y_, klo = kCube ? 0 : klo_, Zo = kCube ? X : Zo_;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
-  const int TJn = (S + kTJ - 1) / kTJ, TIn = (S + kTI - 1) / kTI;
+  const int TJn = (Y + kTJ - 1) / kTJ, TIn = (X + kTI - 1) / kTI;
   const int tiles = B * TIn * TJn, chunks = (Cin + kCh - 1) / kCh;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wi = warp / kTJ, wj = warp % kTJ;
@@ -223,7 +230,7 @@ deconv_final_mma_kernel(__grid_constant__ const CUtensorMap tmap,
   for (int m = 0; m < kNT; ++m)
     lane_chunk[m] = ((2 * m + (q & 1)) ^ (lane & 7)) << 4;
   const float bv = __ldg(bias);
-  const int64_t O = 2 * (int64_t)S;
+  const int64_t Oi = 2 * (int64_t)X, Oj = 2 * (int64_t)Y, Ok = 2 * (int64_t)Zo;
   const int up = (lane + 4) & 31, dn = (lane + 28) & 31;
   const uint2* b2 = reinterpret_cast<const uint2*>(bs);
   int buf = 0;
@@ -272,10 +279,13 @@ deconv_final_mma_kernel(__grid_constant__ const CUtensorMap tmap,
     // the f = 0 columns and dk = 2 in the f = 1 columns).  Fragment
     // entries [0], [1] are row g, columns 2t (f = 0), 2t + 1 (f = 1); [2],
     // [3] row g + 8.  Row neighbours sit 4 lanes away, or in the other
-    // half, or in the neighbouring m-tile.
+    // half, or in the neighbouring m-tile.  Position p of the staged row
+    // is output position p - klo.
     const int i = i0 + wi, j = j0 + wj, a = t >> 1, e = t & 1;
-    __nv_bfloat16* orow = out + (int64_t)bi * O * O * O +
-                          ((2 * (int64_t)i + a) * O + 2 * j + e) * O;
+    const bool row_in = i < X && j < Y;
+    __nv_bfloat16* orow = out + (int64_t)bi * Oi * Oj * Ok +
+                          ((2 * (int64_t)i + a) * Oj + 2 * j + e) * Ok -
+                          2 * klo;
 #pragma unroll
     for (int m = 0; m < kNT; ++m) {
       const float lo_prev = __shfl_sync(0xffffffffu, acc[0][m][0], dn);
@@ -291,10 +301,10 @@ deconv_final_mma_kernel(__grid_constant__ const CUtensorMap tmap,
       const float o2 = acc[1][m][2] + (g > 0 ? hi_prev : lo_prev);
       const float o3 = acc[1][m][3] + (g < 7 ? hi_next : tile_next);
       const int p = m * 16 + g;
-      if (i < S && j < S && p < S)
+      if (row_in && (unsigned)(p - klo) < (unsigned)Zo)
         *reinterpret_cast<uint32_t*>(orow + 2 * p) =
             pack_bf16x2(o0 + bv, o1 + bv);
-      if (i < S && j < S && p + 8 < S)
+      if (row_in && (unsigned)(p + 8 - klo) < (unsigned)Zo)
         *reinterpret_cast<uint32_t*>(orow + 2 * (p + 8)) =
             pack_bf16x2(o2 + bv, o3 + bv);
     }
@@ -332,13 +342,14 @@ EncodeTiled encode_tiled() {
 
 // x as a 5-D tensor (k, c, j, i, b), innermost first, and the box of one
 // stage: 64 k x 16 channels x 6 j x 6 i of one item, 128-byte swizzle.
-bool encode_x(CUtensorMap* map, const void* x, int B, int Cin, int S) {
+bool encode_x(CUtensorMap* map, const void* x, int B, int Cin, int X, int Y,
+              int Z) {
   EncodeTiled fn = encode_tiled();
-  if (!fn || S % 8 != 0 || (uintptr_t)x % 16 != 0) return false;
-  const cuuint64_t s = (cuuint64_t)S, e = 2;
-  const cuuint64_t dims[5] = {s, (cuuint64_t)Cin, s, s, (cuuint64_t)B};
-  const cuuint64_t strides[4] = {s * s * s * e, s * e, s * s * e,
-                                 (cuuint64_t)Cin * s * s * s * e};
+  if (!fn || Z % 8 != 0 || (uintptr_t)x % 16 != 0) return false;
+  const cuuint64_t nx = X, ny = Y, nz = Z, e = 2;
+  const cuuint64_t dims[5] = {nz, (cuuint64_t)Cin, ny, nx, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {nx * ny * nz * e, nz * e, ny * nz * e,
+                                 (cuuint64_t)Cin * nx * ny * nz * e};
   const cuuint32_t box[5] = {kKP, kCh, kHJ, kHI, 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x),
@@ -347,36 +358,43 @@ bool encode_x(CUtensorMap* map, const void* x, int B, int Cin, int S) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The tensor-core kernel for a bf16 call it takes (S <= 64 and a multiple
+// The tensor-core kernel for a bf16 call it takes (Z <= 64 and a multiple
 // of 8, B of every chunk beside the two stages in shared memory: Cin <=
 // 288), one block per SM (its shared memory admits no second), each
 // walking its share of the tiles.  Returns -1 for a call it does not take.
 int launch_mma(const void* x, const float* w, const float* bias, void* out,
-               int B, int Cin, int S, cudaStream_t st) {
+               int B, int Cin, int X, int Y, int Z, int klo, int Zo,
+               cudaStream_t st) {
   CUtensorMap map{};
-  if (S > kKP || smem_bytes((Cin + kCh - 1) / kCh) > 227 * 1024 ||
-      (uintptr_t)out % 4 != 0 || !encode_x(&map, x, B, Cin, S))
+  if (Z > kKP || smem_bytes((Cin + kCh - 1) / kCh) > 227 * 1024 ||
+      (uintptr_t)out % 4 != 0 || !encode_x(&map, x, B, Cin, X, Y, Z))
     return -1;
   static int sms[64];                        // SMs per device; 0 until asked
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (sms[dev] == 0) {
-    err = cudaFuncSetAttribute(deconv_final_mma_kernel,
+    err = cudaFuncSetAttribute(deconv_final_mma_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                227 * 1024);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(deconv_final_mma_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 227 * 1024);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
                                    dev);
     if (err != cudaSuccess) return (int)err;
   }
   const int64_t tiles =
-      (int64_t)B * ((S + kTI - 1) / kTI) * ((S + kTJ - 1) / kTJ);
+      (int64_t)B * ((X + kTI - 1) / kTI) * ((Y + kTJ - 1) / kTJ);
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(tiles < sms[dev] ? tiles : sms[dev]);
-  deconv_final_mma_kernel<<<grid, kWarps * 32,
-                            smem_bytes((Cin + kCh - 1) / kCh), st>>>(
-      map, w, bias, static_cast<__nv_bfloat16*>(out), B, Cin, S);
+  const bool cube = X == Y && Y == Z && klo == 0 && Zo == Z;
+  (cube ? deconv_final_mma_kernel<true> : deconv_final_mma_kernel<false>)
+      <<<grid, kWarps * 32, smem_bytes((Cin + kCh - 1) / kCh), st>>>(
+          map, w, bias, static_cast<__nv_bfloat16*>(out), B, Cin, X, Y, klo,
+          Zo);
   return (int)cudaGetLastError();
 }
 
@@ -388,9 +406,9 @@ constexpr int kFK = 64;                      // positions along k per tile
 constexpr int kFCh = 4;                      // channels per stage
 
 // A staged row starts 16 bytes before k0 (TMA faults on a box whose
-// innermost start is not 16-byte aligned): slot s holds k0 - kLead + s,
-// and k0 - 1 .. k0 + 64 are read.  Rows are whole 16-byte units (TMA's
-// box rows): 72 floats or 80 bf16.
+// innermost start is not 16-byte aligned): slot s holds input k0 - kLead
+// + s, and k0 + klo - 1 .. k0 + klo + 64 are read (klo 0 or 1).  Rows are
+// whole 16-byte units (TMA's box rows): 72 floats or 80 bf16.
 template <typename T> __host__ __device__ constexpr int fma_lead() {
   return 16 / (int)sizeof(T);
 }
@@ -420,9 +438,10 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
 }
 
 // Tiles: (b, ti, tj, tk) with tk fastest; tile rows i0 = 4 ti, j0 = 8 tj,
-// positions k0 = 64 tk.  A step is one chunk of kFCh channels of a tile.
+// output positions k0 = 64 tk (input k0 + klo).  A step is one chunk of
+// kFCh channels of a tile.
 struct FmaGrid {
-  int S, Cin, TIn, TJn, TKn, chunks;
+  int X, Y, Z, klo, Zo, Cin, TIn, TJn, TKn, chunks;
   __device__ void origin(int tile, int& b, int& i0, int& j0, int& k0) const {
     k0 = tile % TKn * kFK;
     j0 = tile / TKn % TJn * kFJ;
@@ -439,17 +458,16 @@ __device__ void stage_x_plain(const T* __restrict__ x, T* xs,
   constexpr int R = fma_row<T>(), L = fma_lead<T>();
   int b, i0, j0, k0;
   g.origin(tile, b, i0, j0, k0);
-  const int S = g.S;
   for (int e = threadIdx.x; e < kFCh * kFHI * kFHJ * 66; e += blockDim.x) {
     const int s = e % 66, row = e / 66;
     const int hj = row % kFHJ, hi = row / kFHJ % kFHI, c = row / (kFHJ * kFHI);
-    const int k = k0 - 1 + s, j = j0 - 1 + hj, i = i0 - 1 + hi;
+    const int k = k0 + g.klo - 1 + s, j = j0 - 1 + hj, i = i0 - 1 + hi;
     const int ch = n * kFCh + c;
     T v = from_f32<T>(0.f);
-    if ((unsigned)k < (unsigned)S && (unsigned)j < (unsigned)S &&
-        (unsigned)i < (unsigned)S && ch < g.Cin)
-      v = x[((((int64_t)b * g.Cin + ch) * S + i) * S + j) * S + k];
-    xs[row * R + L - 1 + s] = v;
+    if ((unsigned)k < (unsigned)g.Z && (unsigned)j < (unsigned)g.Y &&
+        (unsigned)i < (unsigned)g.X && ch < g.Cin)
+      v = x[((((int64_t)b * g.Cin + ch) * g.X + i) * g.Y + j) * g.Z + k];
+    xs[row * R + L - 1 + g.klo + s] = v;
   }
 }
 
@@ -457,24 +475,30 @@ __device__ void stage_x_plain(const T* __restrict__ x, T* xs,
 // the next step's TMA copy (the next tile's first chunk at a tile's end)
 // into the other stage before this step computes; each thread loads one
 // weight of the next step then and stores it after the FMAs.  Warp (wi,
-// wj) owns rows i0 + 2 wi + {0, 1}, j0 + 2 wj + {0, 1}; lane l owns k0 +
-// 2 l + {0, 1}.
-template <typename T, bool kTma>
+// wj) owns rows i0 + 2 wi + {0, 1}, j0 + 2 wj + {0, 1}; lane l owns output
+// positions k0 + 2 l + {0, 1}.  kOdd: klo is 1, which moves the lane's
+// first value to an even slot (the pairs of its 4 values are then the
+// aligned ones).
+template <typename T, bool kTma, bool kOdd>
 __global__ void __launch_bounds__(kFWarps * 32, 1)
 deconv_final_fma_kernel(__grid_constant__ const CUtensorMap tmap,
                         const T* __restrict__ x, const float* __restrict__ w,
                         const float* __restrict__ bias, T* __restrict__ out,
-                        int B, int Cin, int S) {
-  constexpr int R = fma_row<T>();
+                        int B, int Cin, int X, int Y, int Z, int Zo) {
+  constexpr int R = fma_row<T>(), klo = kOdd ? 1 : 0;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
   FmaGrid g;
-  g.S = S;
+  g.X = X;
+  g.Y = Y;
+  g.Z = Z;
+  g.klo = klo;
+  g.Zo = Zo;
   g.Cin = Cin;
-  g.TIn = (S + kFI - 1) / kFI;
-  g.TJn = (S + kFJ - 1) / kFJ;
-  g.TKn = (S + kFK - 1) / kFK;
+  g.TIn = (X + kFI - 1) / kFI;
+  g.TJn = (Y + kFJ - 1) / kFJ;
+  g.TKn = (Zo + kFK - 1) / kFK;
   g.chunks = (Cin + kFCh - 1) / kFCh;
   const int tiles = B * g.TIn * g.TJn * g.TKn;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -522,7 +546,7 @@ deconv_final_fma_kernel(__grid_constant__ const CUtensorMap tmap,
   __syncthreads();
 
   const float bv = __ldg(bias);
-  const int64_t O = 2 * (int64_t)S;
+  const int64_t Oi = 2 * (int64_t)X, Oj = 2 * (int64_t)Y, Ok = 2 * (int64_t)Zo;
   int buf = 0;
   uint32_t phase = 0;                        // per stage, its next parity
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -547,9 +571,10 @@ deconv_final_fma_kernel(__grid_constant__ const CUtensorMap tmap,
         mbar_wait(bar0 + 8 * buf, (phase >> buf) & 1);
         phase ^= 1u << buf;
       }
-      // this lane's first value, k0 + 2 lane - 1, at slot 2 lane + L - 1
+      // this lane's first value, input k0 + klo + 2 lane - 1, at slot
+      // 2 lane + L - 1 + klo
       const T* xs = xs_of(buf) + ((2 * wi) * kFHJ + 2 * wj) * R + 2 * lane +
-                    fma_lead<T>() - 1;
+                    fma_lead<T>() - 1 + klo;
       const float4* ws = reinterpret_cast<const float4*>(ws_of(buf));
 #pragma unroll 1
       for (int c = 0; c < kFCh; ++c, xs += kFHI * kFHJ * R, ws += 16) {
@@ -566,11 +591,24 @@ deconv_final_fma_kernel(__grid_constant__ const CUtensorMap tmap,
         for (int pi = 0; pi < 4; ++pi) {      // input plane i0 + 2 wi + pi - 1
 #pragma unroll
           for (int pj = 0; pj < 4; ++pj) {    // input row j0 + 2 wj + pj - 1
-            // v[u]: input k0 + 2 lane + u - 1; the middle pair is
-            // aligned, the ends are single loads
+            // v[u]: input k0 + klo + 2 lane + u - 1; the aligned pairs
+            // are the middle one (klo 0, the ends single loads) or the
+            // two halves (klo 1)
             const T* row = xs + (pi * kFHJ + pj) * R;
-            const float2 mid = load2(row + 1);
-            const float v[4] = {to_f32(row[0]), mid.x, mid.y, to_f32(row[3])};
+            float v[4];
+            if constexpr (kOdd) {
+              const float2 lo = load2(row), hi = load2(row + 2);
+              v[0] = lo.x;
+              v[1] = lo.y;
+              v[2] = hi.x;
+              v[3] = hi.y;
+            } else {
+              const float2 mid = load2(row + 1);
+              v[0] = to_f32(row[0]);
+              v[1] = mid.x;
+              v[2] = mid.y;
+              v[3] = to_f32(row[3]);
+            }
             // position r of the block sees the plane at offset di = pi - r
             // (input i + di - 1), which feeds phase a where di - a is 0 or
             // 1, through tap 3 + a - 2 di; likewise (q, dj, e), (p, dk, f)
@@ -621,15 +659,15 @@ deconv_final_fma_kernel(__grid_constant__ const CUtensorMap tmap,
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
           const int k = k0 + 2 * lane + p;
-          if (i >= S || j >= S || k >= S) continue;
+          if (i >= X || j >= Y || k >= Zo) continue;
 #pragma unroll
           for (int a = 0; a < 2; ++a)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const float* o =
                   acc + ((((r * 2 + q) * 2 + p) * 2 + a) * 2 + e) * 2;
-              store_pair(out + (((int64_t)b * O + 2 * i + a) * O + 2 * j + e) *
-                                   O + 2 * k,
+              store_pair(out + (((int64_t)b * Oi + 2 * i + a) * Oj + 2 * j +
+                                e) * Ok + 2 * k,
                          o[0] + bv, o[1] + bv);
             }
         }
@@ -644,13 +682,14 @@ deconv_final_fma_kernel(__grid_constant__ const CUtensorMap tmap,
 // False where TMA cannot describe it: a row of x is no whole number of
 // 16-byte units, or x is not 16-byte aligned.
 template <typename T>
-bool encode_x_fma(CUtensorMap* map, const void* x, int B, int Cin, int S) {
+bool encode_x_fma(CUtensorMap* map, const void* x, int B, int Cin, int X,
+                  int Y, int Z) {
   EncodeTiled fn = encode_tiled();
-  const cuuint64_t s = (cuuint64_t)S, e = sizeof(T);
-  if (!fn || (s * e) % 16 != 0 || (uintptr_t)x % 16 != 0) return false;
-  const cuuint64_t dims[5] = {s, s, s, (cuuint64_t)Cin, (cuuint64_t)B};
-  const cuuint64_t strides[4] = {s * e, s * s * e, s * s * s * e,
-                                 (cuuint64_t)Cin * s * s * s * e};
+  const cuuint64_t nx = X, ny = Y, nz = Z, e = sizeof(T);
+  if (!fn || (nz * e) % 16 != 0 || (uintptr_t)x % 16 != 0) return false;
+  const cuuint64_t dims[5] = {nz, ny, nx, (cuuint64_t)Cin, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {nz * e, ny * nz * e, nx * ny * nz * e,
+                                 (cuuint64_t)Cin * nx * ny * nz * e};
   const cuuint32_t box[5] = {(cuuint32_t)fma_row<T>(), kFHJ, kFHI, kFCh, 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return fn(map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -666,11 +705,14 @@ bool encode_x_fma(CUtensorMap* map, const void* x, int B, int Cin, int S) {
 // second), each walking its share of the tiles.
 template <typename T>
 int launch_fma(const void* x, const float* w, const float* bias, void* out,
-               int B, int Cin, int S, cudaStream_t st) {
+               int B, int Cin, int X, int Y, int Z, int klo, int Zo,
+               cudaStream_t st) {
   CUtensorMap map{};
-  const bool tma = encode_x_fma<T>(&map, x, B, Cin, S);
-  auto kernel = tma ? deconv_final_fma_kernel<T, true>
-                    : deconv_final_fma_kernel<T, false>;
+  const bool tma = encode_x_fma<T>(&map, x, B, Cin, X, Y, Z);
+  auto kernel = tma ? (klo ? deconv_final_fma_kernel<T, true, true>
+                           : deconv_final_fma_kernel<T, true, false>)
+                    : (klo ? deconv_final_fma_kernel<T, false, true>
+                           : deconv_final_fma_kernel<T, false, false>);
   const int smem = fma_smem_bytes<T>();
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -680,13 +722,13 @@ int launch_fma(const void* x, const float* w, const float* bias, void* out,
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t tiles = (int64_t)B * ((S + kFI - 1) / kFI) *
-                        ((S + kFJ - 1) / kFJ) * ((S + kFK - 1) / kFK);
+  const int64_t tiles = (int64_t)B * ((X + kFI - 1) / kFI) *
+                        ((Y + kFJ - 1) / kFJ) * ((Zo + kFK - 1) / kFK);
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   kernel<<<grid, kFWarps * 32, smem, st>>>(
       map, static_cast<const T*>(x), w, bias, static_cast<T*>(out), B, Cin,
-      S);
+      X, Y, Z, Zo);
   return (int)cudaGetLastError();
 }
 
@@ -694,21 +736,33 @@ int launch_fma(const void* x, const float* w, const float* bias, void* out,
 
 extern "C" {
 
-// x (B, Cin, S, S, S), w (Cin, 64) float32, bias (1,) float32 ->
-// out (B, 1, 2S, 2S, 2S), all contiguous.
-int deconv_final(const void* x, const float* w, const float* bias, void* out,
-                 int dtype, int B, int Cin, int S, void* stream) {
+// x (B, Cin, X, Y, Z), w (Cin, 64) float32, bias (1,) float32 ->
+// out (B, 1, 2X, 2Y, 2 Zo), the output planes of input positions klo ..
+// klo + Zo - 1 along Z (klo 0 or 1), all contiguous.
+int deconv_final_slab(const void* x, const float* w, const float* bias,
+                      void* out, int dtype, int B, int Cin, int X, int Y,
+                      int Z, int klo, int Zo, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || Cin < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || Cin < 1 || X < 1 || Y < 1 || Zo < 1 || (klo != 0 && klo != 1) ||
+      klo + Zo > Z)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_fma<float>(x, w, bias, out, B, Cin, S, st);
+    return launch_fma<float>(x, w, bias, out, B, Cin, X, Y, Z, klo, Zo, st);
   if (dtype == 1) {
-    const int err = launch_mma(x, w, bias, out, B, Cin, S, st);
+    const int err = launch_mma(x, w, bias, out, B, Cin, X, Y, Z, klo, Zo, st);
     return err >= 0 ? err
-                    : launch_fma<__nv_bfloat16>(x, w, bias, out, B, Cin, S,
-                                                st);
+                    : launch_fma<__nv_bfloat16>(x, w, bias, out, B, Cin, X, Y,
+                                                Z, klo, Zo, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The whole layer on a cube, the main path's call: x (B, Cin, S, S, S) ->
+// out (B, 1, 2S, 2S, 2S).
+int deconv_final(const void* x, const float* w, const float* bias, void* out,
+                 int dtype, int B, int Cin, int S, void* stream) {
+  return deconv_final_slab(x, w, bias, out, dtype, B, Cin, S, S, S, 0, S,
+                           stream);
 }
 
 }  // extern "C"

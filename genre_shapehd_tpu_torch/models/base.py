@@ -9,7 +9,8 @@ device scalars; ``eval_step(batch)`` returns them with the predictions.
 Batches are the loaders' numpy dicts, channel-last.  In a group of ranks
 (``parallel/mesh.py``, ``cli.train --multihost``) a batch is the rank's
 slice of the global batch; the gradients are averaged over the ranks
-before the update and the returned loss terms are the global batch's.
+before the update (summed over sp for :meth:`ModelBase.slab_params`)
+and the returned loss terms are the global batch's.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def default_opt(**overrides) -> SimpleNamespace:
         canon_sup=False, canon_voxel=False, wgangp_lambda=10.0,
         wgangp_norm=1.0, gan_d_iter=1, marrnet1=None, marrnet2=None,
         gan=None, w_gan_loss=0.0, marrnet1_file=None, backbone_init=None,
-        exact_render=False)
+        exact_render=False, decoder_width=1.0, f32_heads=False)
     base.update(overrides)
     return SimpleNamespace(**base)
 
@@ -72,15 +73,17 @@ def masked_mse(pred: torch.Tensor, gt: torch.Tensor,
                mask: torch.Tensor) -> torch.Tensor:
     """Mean over the selected elements -- torch's ``mse(a[m], b[m])``.
 
-    In a group (``parallel/mesh.py``) the count is the global batch's and
-    the local sum is scaled by the number of ranks, so that the ranks'
-    mean of the value, and of its gradient, is the global batch's."""
+    In a group (``parallel/mesh.py``) the count is the global batch's
+    (``mesh.all_reduce_batch``: the dp group's sum, the same on every sp
+    copy) and the local sum is scaled by the dp count, so that the dp
+    ranks' mean of the value, and of its gradient, is the global
+    batch's."""
     mask = torch.broadcast_to(mask, pred.shape).to(pred.dtype)
     total = (mask * (pred - gt) ** 2).sum()
     count = mask.sum()
     if mesh.joined():
-        total = total * mesh.world()
-        count = mesh.all_reduce_sum(count.detach())
+        total = total * mesh.size(mesh.DP)
+        count = mesh.all_reduce_batch(count.detach())
     return total / torch.clamp(count, min=1.0)
 
 
@@ -206,8 +209,8 @@ class ModelBase:
             loss, loss_data = self.compute_loss(pred, batch)
         with record_function("genre.backward"):
             loss.backward()
-        mesh.all_reduce_grads(p for g in self.optimizer.param_groups
-                              for p in g["params"])
+        mesh.all_reduce_grads((p for g in self.optimizer.param_groups
+                               for p in g["params"]), self.slab_params())
         with record_function("genre.optimizer"):
             self.optimizer.step()
         self.step += 1
@@ -223,6 +226,11 @@ class ModelBase:
             pred = self.forward_batch(batch)
             _, loss_data = self.compute_loss(pred, batch)
         return mesh.all_reduce_metrics(loss_data), pred
+
+    def slab_params(self) -> List[torch.nn.Parameter]:
+        """Parameters whose gradient on a rank is its Z slab's share
+        (``parallel/mesh.py``): none but GenRe's 3D U-Net under sp."""
+        return []
 
     # ------------------------------------------------------- data contract
     def preprocess(self, data: Dict, mode: str = "train",

@@ -169,7 +169,7 @@ class Model(DepthModel):
         opt.pred_depth_minmax = True
         self.joint_train = bool(getattr(opt, "joint_train", False))
         self.load_offline = bool(getattr(opt, "load_offline", False))
-        self.exact_render = bool(getattr(opt, "exact_render", False))
+        self.exact_render = bool(opt.exact_render)
         self.gt_depth_input = bool(getattr(opt, "gt_depth_input", False))
         self.gt_minmax_input = bool(getattr(opt, "gt_minmax_input", False))
         super().__init__(opt)

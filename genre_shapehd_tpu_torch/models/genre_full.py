@@ -9,6 +9,14 @@ erosions, ``ops/voxel.py``), plus ``joint_w25d`` times the 2.5D and
 spherical losses under ``joint_train``.  Without ``joint_train`` stage 2
 runs without a gradient (net2 in train mode, net1 in eval mode) and only
 the refine net learns.
+
+Under ``cli.train --sp`` (``parallel/mesh.py``) the sp ranks of a dp
+index run everything before the 3D U-Net on the same rows, then each
+runs the U-Net on its Z slab of the refine net's input and gathers the
+logits (``nn/unet3d.py``); the slab cut's backward assembles the input
+gradient, so that the redundant 2D nets of every sp rank receive the
+whole voxel loss's gradient.  Only the refine net shards, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from torch.profiler import record_function
 
 from .. import ops
 from ..nn import UNet3D, init_weights
+from ..parallel import mesh
 from .base import ModelBase, as_numpy, bce_with_logits, net_autocast
 from .depth_inpaint import DepthInpaintNet, Model as DepthInpaintModel
 from .test_base import TestMixin
@@ -70,7 +79,11 @@ class GenreNet(nn.Module):
             proj_depth = torch.clamp(out1["proj_depth"] / 50.0, 1e-5,
                                      1.0 - 1e-5)
             refine_in = torch.stack([pred_proj_sph, proj_depth], dim=-1)
-            pred_voxel = self.refine_net(refine_in.to(self.dtype))
+            sharded = mesh.size(mesh.SP) > 1
+            if sharded:
+                refine_in = mesh.z_slab(refine_in, 3, grad="gather")
+            pred_voxel = self.refine_net(refine_in.to(self.dtype),
+                                         sharded=sharded)
         out1["pred_proj_depth"] = proj_depth
         out1["pred_voxel"] = pred_voxel
         out1["pred_proj_sph_full"] = pred_proj_sph
@@ -123,6 +136,12 @@ class Model(DepthInpaintModel):
     def build_net(self) -> nn.Module:
         return GenreNet(gt_sph_full=self.gt_sph_full,
                         **self.depth_inpaint_kwargs())
+
+    def slab_params(self):
+        """Under sp the refine net's gradients are its Z slab's share."""
+        if mesh.size(mesh.SP) == 1:
+            return []
+        return list(self.net.refine_net.parameters())
 
     def init_state(self, seed: int = 0) -> None:
         ModelBase.init_state(self, seed)   # net1_path is stage 2's

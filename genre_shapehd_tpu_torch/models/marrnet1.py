@@ -63,9 +63,8 @@ class Model(ModelBase):
         only into a net built with the same ones)."""
         opt = self.opt
         return dict(im_size=opt.im_size,
-                    decoder_width=float(getattr(opt, "decoder_width", 1.0)),
-                    head_dtype=(torch.float32 if getattr(opt, "f32_heads",
-                                                         False) else None))
+                    decoder_width=float(opt.decoder_width),
+                    head_dtype=torch.float32 if opt.f32_heads else None)
 
     def build_net(self) -> nn.Module:
         return UResNet(3, (3, 1, 1), ("normal", "depth", "silhou"),

@@ -24,8 +24,9 @@ its device, seeded by ``--manual_seed``; ``train_step`` takes them as an
 argument instead (the parity tests hand it the JAX step's draws).  They
 are drawn for the global batch: in a group of ranks (``cli.train
 --multihost``) every rank draws all of them alike, as the JAX package
-draws them from one replicated key, and uses its slice; the gradients are
-averaged over the ranks before each optimizer's step.
+draws them from one replicated key, and uses its dp index's slice (the
+sp ranks of ``--sp`` hold copies); the gradients are averaged over the
+ranks before each optimizer's step.
 """
 
 from __future__ import annotations
@@ -181,7 +182,7 @@ class Model(ModelBase):
 
     def global_batch(self, b: int) -> int:
         """The global batch of which a rank's batch of ``b`` is a slice."""
-        return self.opt.batch_size if mesh.world() > 1 else b
+        return self.opt.batch_size if mesh.size(mesh.DP) > 1 else b
 
     def eval_step(self, batch: Dict):
         """-mean D(G(z)) as the eval loss.  G normalises with the batch's

@@ -27,13 +27,17 @@ class _FlaxStats:
 
     In a group of more than one rank (``parallel/mesh.py``) the mean and
     the variance are the global batch's, with the gradient flowing
-    through both, as Flax takes them inside a step jitted over a mesh."""
+    through both, as Flax takes them inside a step jitted over a mesh:
+    summed by ``mesh.all_reduce_batch``, where the sp ranks hold copies
+    of the rows; or, with ``sharded`` (a layer of the 3D U-Net that runs
+    on Z slabs), summed over the world, whose ranks hold every slab of
+    every row once."""
 
-    def forward(self, x):
+    def forward(self, x, sharded: bool = False):
         if not self.training:
             return super().forward(x)
         if mesh.world() > 1:
-            return self._global_forward(x)
+            return self._global_forward(x, sharded)
         dims = (0,) + tuple(range(2, x.dim()))
         with torch.no_grad():
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -46,21 +50,23 @@ class _FlaxStats:
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                              0.0, self.eps)
 
-    def _global_forward(self, x):
+    def _global_forward(self, x, sharded):
         """Train mode over the ranks' global batch: the mean first, then
         the mean squared deviation from it (two passes, two all-reduces),
         in float32; the running statistics move toward the global values,
         so they stay equal on every rank."""
+        reduce = (lambda t: mesh.all_reduce_sum(t, mesh.WORLD)) \
+            if sharded else mesh.all_reduce_batch
         dims = (0,) + tuple(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
         n_local = torch.tensor([x.numel() // x.shape[1]], dtype=xs.dtype,
                                device=x.device)
-        sums = mesh.all_reduce_sum(torch.cat([xs.sum(dims), n_local]))
+        sums = reduce(torch.cat([xs.sum(dims), n_local]))
         n = sums[-1].detach()
         mean = sums[:-1] / n
         centred = xs - mean.reshape(shape)
-        var = mesh.all_reduce_sum((centred * centred).sum(dims)) / n
+        var = reduce((centred * centred).sum(dims)) / n
         with torch.no_grad():
             self.running_mean.lerp_(mean.to(self.running_mean.dtype),
                                     self.momentum)

@@ -4,6 +4,35 @@
 bottleneck, BatchNorm + LeakyReLU(0.01) conv blocks.
 
 Input (N, X, Y, Z, 2), output (N, X, Y, Z) logits; NCDHW inside.
+
+**Sharded forward** (``sharded=True``; ``cli.train --sp``, where the
+JAX package shards the input's Z axis over the mesh's ``sp`` axis and
+GSPMD partitions the convolutions).  The input is this rank's Z slab of
+the sp group (``parallel/mesh.py``); each rank runs every layer from the
+stem down to the 4³ level, and back up from there, on its slab, each
+convolution on the slab widened by the halo planes its kernel reaches
+from the neighbours (``Conv3D`` / ``Deconv3D`` with ``slab``: 3 planes
+a side for the k8 s2 p3 stem, 2 for the k8 s2 p3 deconv, 1 for the k4
+s2 p1 levels and dec6, which runs on K3 with its halo).  Their
+BatchNorm takes its statistics over the slabs of every rank.
+
+The **gather point** is the 4³ level: the k4 VALID convolution to 1³,
+the Dense bottleneck and the k4 VALID deconvolution back to 4³ read the
+whole 4³ extent (a kernel that spans it), where every shallower layer
+reads at most a plane of its neighbours'.  So the 4³ encoder output is
+gathered along Z, those three layers run redundantly on every sp rank
+(their BatchNorm over the global batch's copies, as the 2D nets'), and
+the 4³ decoder output is cut back to this rank's slab.  Gathering any
+higher would run 8³ and larger layers redundantly; the 4³ level is the
+deepest one that a slab of at least one plane can split: sp divides 4.
+The gather's backward sums the sp ranks' shares of the gradient, the
+cut's takes this rank's own share, so that every U-Net parameter's
+gradient on a rank is its slab's share (summed over sp before the
+update: ``models/base.py::slab_params``).
+
+The logits are gathered along Z at the end; the backward takes this
+rank's slab of their gradient, where each rank computes the loss on the
+whole volume.
 """
 
 from __future__ import annotations
@@ -14,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
 from .resnet import batch_norm
 from .voxel_nets import Conv3D, Deconv3D
 
@@ -56,21 +86,37 @@ class UNet3D(nn.Module):
                 bn += 1
         self.n_dec = len(dec)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sharded: bool = False
+                ) -> torch.Tensor:
+        """x (N, X, Y, Z, 2), or with ``sharded`` this rank's Z slab of
+        it; the (N, X, Y, Z) logits, all of Z."""
+        if sharded and 4 % mesh.size(mesh.SP):
+            raise ValueError(f"--sp {mesh.size(mesh.SP)}: the sharded 3D "
+                             "U-Net splits its 4³ level, so sp divides 4")
         h = x.permute(0, 4, 1, 2, 3)
         encs = []
         for i in range(self.n_enc):
-            h = getattr(self, f"Conv3D_{i}")(h)
-            h = F.leaky_relu(getattr(self, f"BatchNorm_{i}")(h), 0.01)
+            slab = sharded and i < self.n_enc - 1
+            if sharded and not slab:            # the gather point
+                h = mesh.gather_z(h, 4, grad="sum")
+            h = getattr(self, f"Conv3D_{i}")(h, slab=slab)
+            h = F.leaky_relu(getattr(self, f"BatchNorm_{i}")(
+                h, sharded=slab), 0.01)
             encs.append(h)
         assert h.shape[2:] == (1, 1, 1), h.shape
         flat = F.leaky_relu(self.Dense_0(h.flatten(1)), 0.01)
         h = flat.reshape(h.shape[0], self.width, 1, 1, 1)
         bn = self.n_enc
         for i in range(self.n_dec):
+            slab = sharded and i > 0
             h = torch.cat([h, encs[-(i + 1)]], dim=1)
-            h = getattr(self, f"Deconv3D_{i}")(h)
+            h = getattr(self, f"Deconv3D_{i}")(h, slab=slab)
             if i < self.n_dec - 1:
-                h = F.leaky_relu(getattr(self, f"BatchNorm_{bn}")(h), 0.01)
+                h = F.leaky_relu(getattr(self, f"BatchNorm_{bn}")(
+                    h, sharded=slab), 0.01)
                 bn += 1
+            if sharded and i == 0:              # back to the slabs
+                h = mesh.z_slab(h, 4, grad="local")
+        if sharded:
+            return mesh.gather_z(h[:, 0], 3, grad="slab")
         return h[:, 0]

@@ -9,6 +9,13 @@ parameters, so here each is the plain layer -- except the one-channel
 kernel K3 on CUDA tensors (``ops/cuda/subpixel_kernel.py``).  The wrapper
 names (``Conv_0``, ``ConvTranspose_0``, ``Deconv3D_3``, ``BatchNorm_1``)
 mirror the Flax parameter tree.
+
+``Conv3D`` and ``Deconv3D`` also run on this rank's Z slab of a volume
+that the sp ranks share (``slab=True``; ``parallel/mesh.py``, the
+sharded 3D U-Net): the slab is widened by the halo planes its outputs
+reach (:func:`conv_halo`, :func:`deconv_halo`), and the layer runs with
+no padding along Z, so that each rank computes the outputs of its own
+planes, those of one process.
 """
 
 from __future__ import annotations
@@ -20,7 +27,29 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.subpixel_kernel import deconv_final
+from ..parallel import mesh
 from .resnet import batch_norm
+
+
+def conv_halo(k: int, s: int, p: int):
+    """(lo, hi): the planes before and after a slab of Zs input planes
+    (Zs a multiple of s) that ``Conv3d(k, s, p)`` reads for the slab's
+    Zs / s outputs, ``p`` and ``k - s - p``."""
+    return p, k - s - p
+
+
+def deconv_halo(k: int, s: int, p: int):
+    """(lo, hi, pad): the input planes before and after a slab of Zs that
+    ``ConvTranspose3d(k, s, p)`` reads for the slab's s Zs outputs, and
+    the Z padding that crops the halo'd slab's output to them.  Output o
+    takes inputs (o + p - k + 1) / s .. (o + p) / s, so the slab's outputs
+    s z0 .. s (z0 + Zs) - 1 take z0 - lo .. z0 + Zs - 1 + hi."""
+    lo, hi = (k - 1 - p) // s, (p - 1) // s + 1
+    pad = s * lo + p
+    if s * (lo + hi - 1) + k != 2 * pad:
+        raise ValueError(f"ConvTranspose3d(k={k}, s={s}, p={p}) on a slab "
+                         "needs an uneven crop")
+    return lo, hi, pad
 
 
 class Conv3D(nn.Module):
@@ -33,8 +62,17 @@ class Conv3D(nn.Module):
         self.Conv_0 = nn.Conv3d(cin, features, kernel, stride, torch_padding,
                                 bias=use_bias)
 
-    def forward(self, x):
-        return self.Conv_0(x)
+    def forward(self, x, slab: bool = False):
+        if not slab:
+            return self.Conv_0(x)
+        c = self.Conv_0
+        (k, _, _), (s, _, _), (p, _, _) = (c.kernel_size, c.stride,
+                                           c.padding)
+        if x.shape[4] % s:
+            raise ValueError(f"a Z slab of {x.shape[4]} planes for stride "
+                             f"{s}")
+        x = mesh.halo(x, *conv_halo(k, s, p))
+        return F.conv3d(x, c.weight, c.bias, s, (p, p, 0))
 
 
 class Deconv3D(nn.Module):
@@ -54,12 +92,23 @@ class Deconv3D(nn.Module):
             self.register_buffer("zero_bias", torch.zeros(1),
                                  persistent=False)
 
-    def forward(self, x):
+    def forward(self, x, slab: bool = False):
+        c = self.ConvTranspose_0
+        bias = self.zero_bias if self.final and c.bias is None else c.bias
+        if not slab:
+            if self.final:
+                return deconv_final(x, c.weight, bias)
+            return c(x)
+        (k, _, _), (s, _, _), (p, _, _) = (c.kernel_size, c.stride,
+                                           c.padding)
+        zs = x.shape[4]
+        lo, hi, pad = deconv_halo(k, s, p)
         if self.final:
-            bias = self.ConvTranspose_0.bias
-            return deconv_final(x, self.ConvTranspose_0.weight,
-                                self.zero_bias if bias is None else bias)
-        return self.ConvTranspose_0(x)
+            # K3 takes the halo'd slab in rows of whole 16-byte units
+            return deconv_final(mesh.halo(x, lo, hi, align=8), c.weight,
+                                bias, lo, zs)
+        return F.conv_transpose3d(mesh.halo(x, lo, hi), c.weight, bias, s,
+                                  (p, p, pad))
 
 
 class VoxelDecoder(nn.Module):

@@ -6,7 +6,11 @@ and launch count (counterpart of
      the JAX package's ``deconv_final_fused`` -- the phase conv that XLA
      runs there and the phase assembly of the Pallas ``_final_tail_kernel``:
      ``ConvTranspose3d(Cin -> 1, k=4, s=2, p=1)`` plus bias,
-     x (B, Cin, S, S, S) -> (B, 1, 2S, 2S, 2S), float32 or bfloat16.
+     x (B, Cin, X, Y, Z) -> (B, 1, 2X, 2Y, 2Z), float32 or bfloat16;
+     or, on a Z slab of the sharded 3D U-Net (``parallel/mesh.py``), the
+     output planes of ``z_out`` input positions from ``z_lo`` (0 or 1)
+     of an x whose first and last Z planes are the neighbours' halo:
+     (B, 1, 2X, 2Y, 2 z_out).
 
 :func:`deconv_final` launches the kernel on CUDA tensors and runs the
 plain version (:func:`deconv_final_plain`, ``F.conv_transpose3d``) on CPU
@@ -27,8 +31,8 @@ channels, against :func:`pack_weight`'s (27, Cin_pad, 8) weight with its
 structured zeros, into the 8 output phases.  :func:`deconv_final_gemm` is
 the same contraction in PyTorch, so that the CPU tests hold the
 formulation.  In float32, and in bfloat16 where that tiling does not
-apply (S > 64, S not a multiple of 8, Cin > 288), the CUDA cores compute
-the 8 taps of each phase directly, as the plain version does.
+apply (Z > 64, Z not a multiple of 8, Cin > 288), the CUDA cores
+compute the 8 taps of each phase directly, as the plain version does.
 
 The gradient (:func:`deconv_final_backward`) is the plain version's,
 computed by ``aten.convolution_backward`` without running the forward
@@ -39,7 +43,7 @@ VJP of ``_final_ref_xla``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +54,9 @@ SOURCE = "deconv_final_kernel.cu"
 
 #: launches of the kernel since the last :func:`reset_launches`
 launches: Dict[str, int] = {"deconv_final": 0}
+#: the launches on a box or a Z slab (not on a cube) by shape, (B, Cin,
+#: X, Y, Z, z_lo, z_out)
+slab_launches: Dict[Tuple[int, ...], int] = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -58,16 +65,27 @@ _lib = None
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    slab_launches.clear()
+
+
+def _z_range(x: torch.Tensor, z_lo: int, z_out) -> int:
+    return x.shape[4] - 2 * z_lo if z_out is None else z_out
 
 
 def deconv_final_plain(x: torch.Tensor, weight: torch.Tensor,
-                       bias: torch.Tensor) -> torch.Tensor:
-    """x (B, Cin, S, S, S), weight (Cin, 1, 4, 4, 4), bias (1,) ->
-    (B, 1, 2S, 2S, 2S); parameters are cast to x's dtype unless autocast
-    does it."""
+                       bias: torch.Tensor, z_lo: int = 0,
+                       z_out: int = None) -> torch.Tensor:
+    """x (B, Cin, X, Y, Z), weight (Cin, 1, 4, 4, 4), bias (1,) -> the
+    output planes 2 z_lo .. 2 (z_lo + z_out) - 1 of (B, 1, 2X, 2Y, 2Z)
+    (all of them by default); parameters are cast to x's dtype unless
+    autocast does it."""
     if not torch.is_autocast_enabled(x.device.type):
         weight, bias = weight.to(x.dtype), bias.to(x.dtype)
-    return F.conv_transpose3d(x, weight, bias, stride=2, padding=1)
+    out = F.conv_transpose3d(x, weight, bias, stride=2, padding=1)
+    z_out = _z_range(x, z_lo, z_out)
+    if (z_lo, z_out) == (0, x.shape[4]):
+        return out
+    return out[..., 2 * z_lo:2 * (z_lo + z_out)]
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -89,28 +107,36 @@ def pack_weight(weight: torch.Tensor) -> torch.Tensor:
 
 
 def deconv_final_gemm(x: torch.Tensor, weight: torch.Tensor,
-                      bias: torch.Tensor) -> torch.Tensor:
+                      bias: torch.Tensor, z_lo: int = 0,
+                      z_out: int = None) -> torch.Tensor:
     """The kernel's formulation in PyTorch: x padded by one voxel, its 27
-    shifted views (B, 27, Cin, S, S, S) contracted with
-    :func:`pack_weight` into 8 phases per input position, the phases
-    interleaved into (B, 1, 2S, 2S, 2S), plus bias."""
-    bsz, cin, s = x.shape[0], x.shape[1], x.shape[2]
+    shifted views (B, 27, Cin, X, Y, z_out) from Z position ``z_lo``
+    contracted with :func:`pack_weight` into 8 phases per input position,
+    the phases interleaved into (B, 1, 2X, 2Y, 2 z_out), plus bias."""
+    bsz, cin, nx, ny = x.shape[:4]
+    nz = _z_range(x, z_lo, z_out)
     xp = F.pad(x, (1, 1, 1, 1, 1, 1))
-    cols = torch.stack([xp[:, :, d // 9:d // 9 + s, d // 3 % 3:d // 3 % 3 + s,
-                           d % 3:d % 3 + s] for d in range(27)], 1)
+    cols = torch.stack([xp[:, :, d // 9:d // 9 + nx, d // 3 % 3:d // 3 % 3
+                           + ny, z_lo + d % 3:z_lo + d % 3 + nz]
+                        for d in range(27)], 1)
     ph = torch.einsum("bdcijk,dcg->bijkg", cols,
                       pack_weight(weight)[:, :cin].to(x.dtype))
-    out = ph.reshape(bsz, s, s, s, 2, 2, 2).permute(0, 1, 4, 2, 5, 3, 6)
-    return out.reshape(bsz, 1, 2 * s, 2 * s, 2 * s) + bias.to(x.dtype)
+    out = ph.reshape(bsz, nx, ny, nz, 2, 2, 2).permute(0, 1, 4, 2, 5, 3, 6)
+    return out.reshape(bsz, 1, 2 * nx, 2 * ny, 2 * nz) + bias.to(x.dtype)
 
 
 def deconv_final_backward(grad: torch.Tensor, x: torch.Tensor,
-                          weight: torch.Tensor, needs=(True, True, True)):
-    """Gradients of ``conv_transpose3d(x, weight, bias, stride=2,
-    padding=1)`` with respect to (x, weight, bias), each None where
-    ``needs`` says so: one ``aten.convolution_backward`` in x's dtype, no
-    forward; the weight's and the bias's come back in the weight's
-    dtype."""
+                          weight: torch.Tensor, needs=(True, True, True),
+                          z_lo: int = 0):
+    """Gradients of :func:`deconv_final_plain` (``conv_transpose3d(x,
+    weight, bias, stride=2, padding=1)``, its Z planes from ``2 z_lo``)
+    with respect to (x, weight, bias), each None where ``needs`` says so:
+    one ``aten.convolution_backward`` in x's dtype, no forward, of
+    ``grad`` widened by zero planes to the whole output; the weight's and
+    the bias's come back in the weight's dtype."""
+    rest = 2 * x.shape[4] - 2 * z_lo - grad.shape[4]
+    if z_lo or rest:
+        grad = F.pad(grad, (2 * z_lo, rest))
     gx, gw, gb = torch.ops.aten.convolution_backward(
         grad.to(x.dtype), x, weight.to(x.dtype), [1], [2, 2, 2], [1, 1, 1],
         [1, 1, 1], True, [0, 0, 0], 1, list(needs))
@@ -124,16 +150,23 @@ def _library():
         lib = build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.deconv_final.argtypes = [p, p, p, p, i, i, i, i, p]
-        lib.deconv_final.restype = i
+        lib.deconv_final_slab.argtypes = [p, p, p, p] + [i] * 8 + [p]
+        lib.deconv_final.restype = lib.deconv_final_slab.restype = i
         _lib = lib
     return _lib
 
 
 def _check_args(x: torch.Tensor, weight: torch.Tensor,
-                bias: torch.Tensor) -> None:
-    if x.dim() != 5 or not x.shape[2] == x.shape[3] == x.shape[4]:
-        raise ValueError(f"deconv_final: x must be (B, Cin, S, S, S), got "
+                bias: torch.Tensor, z_lo: int, z_out) -> None:
+    if x.dim() != 5:
+        raise ValueError(f"deconv_final: x must be (B, Cin, X, Y, Z), got "
                          f"{tuple(x.shape)}")
+    if z_lo or z_out is not None:
+        n = _z_range(x, z_lo, z_out)
+        if z_lo not in (0, 1) or n < 1 or z_lo + n > x.shape[4]:
+            raise ValueError(f"deconv_final: output planes of Z positions "
+                             f"{z_lo} .. {z_lo + n - 1} of x "
+                             f"{tuple(x.shape)}; z_lo must be 0 or 1")
     if tuple(weight.shape) != (x.shape[1], 1, 4, 4, 4):
         raise ValueError(f"deconv_final: weight must be ({x.shape[1]}, 1, 4, "
                          f"4, 4), got {tuple(weight.shape)}")
@@ -144,8 +177,9 @@ def _check_args(x: torch.Tensor, weight: torch.Tensor,
 
 def _launch(x: torch.Tensor, weight: torch.Tensor,
             bias: torch.Tensor) -> torch.Tensor:
-    """x already in the compute dtype; weight (rounded by the kernel to
-    x's dtype), bias float32; all CUDA."""
+    """The whole layer on a cube, the main path's call.  x already in the
+    compute dtype; weight (rounded by the kernel to x's dtype), bias
+    float32; all CUDA."""
     x = x.contiguous()                   # NCDHW; a channels-last x is copied
     w = weight.reshape(x.shape[1], 64).contiguous()
     b = bias.contiguous()
@@ -165,8 +199,35 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def _launch_slab(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 z_lo: int, z_out) -> torch.Tensor:
+    """As :func:`_launch`, for any other call: a box, or the output
+    planes of ``z_out`` Z positions from ``z_lo``."""
+    x = x.contiguous()
+    w = weight.reshape(x.shape[1], 64).contiguous()
+    b = bias.contiguous()
+    bsz, cin, nx, ny, nz = x.shape
+    z_out = _z_range(x, z_lo, z_out)
+    out = torch.empty((bsz, 1, 2 * nx, 2 * ny, 2 * z_out), dtype=x.dtype,
+                      device=x.device)
+    lib = _library()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())          # noqa: E731
+    shape = (bsz, cin, nx, ny, nz, z_lo, z_out)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.deconv_final_slab(ptr(x), ptr(w), ptr(b), ptr(out),
+                                    _DTYPE_CODE[x.dtype], *shape,
+                                    ctypes.c_void_p(stream))
+        launches["deconv_final"] += 1
+        slab_launches[shape] = slab_launches.get(shape, 0) + 1
+    if err != 0:
+        raise RuntimeError(f"deconv_final: CUDA error {err} at launch")
+    return out
+
+
 class _DeconvFinal(torch.autograd.Function):
-    """Forward: K3.  Backward: the gradient of the plain version."""
+    """Forward: K3 on a cube.  Backward: the gradient of the plain
+    version."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
@@ -179,14 +240,34 @@ class _DeconvFinal(torch.autograd.Function):
         return deconv_final_backward(grad, x, weight, ctx.needs_input_grad)
 
 
+class _DeconvFinalSlab(torch.autograd.Function):
+    """Forward: K3 on a box or a Z slab.  Backward: the gradient of the
+    plain version."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, z_lo, z_out):
+        ctx.save_for_backward(x, weight)
+        ctx.z_lo = z_lo
+        return _launch_slab(x, weight, bias, z_lo, z_out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        return deconv_final_backward(grad, x, weight,
+                                     ctx.needs_input_grad[:3],
+                                     ctx.z_lo) + (None, None)
+
+
 def deconv_final(x: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor) -> torch.Tensor:
+                 bias: torch.Tensor, z_lo: int = 0,
+                 z_out: int = None) -> torch.Tensor:
     """``ConvTranspose3d(Cin -> 1, k=4, s=2, p=1)(x)`` with the layer's
-    parameters as ``nn.ConvTranspose3d`` holds them: K3 on CUDA tensors,
+    parameters as ``nn.ConvTranspose3d`` holds them, or its output planes
+    of ``z_out`` Z positions from ``z_lo`` (0 or 1): K3 on CUDA tensors,
     the plain version on CPU tensors."""
-    _check_args(x, weight, bias)
+    _check_args(x, weight, bias, z_lo, z_out)
     if x.device.type == "cpu":
-        return deconv_final_plain(x, weight, bias)
+        return deconv_final_plain(x, weight, bias, z_lo, z_out)
     if x.device.type != "cuda" or weight.device != x.device \
             or bias.device != x.device:
         raise RuntimeError(
@@ -199,4 +280,7 @@ def deconv_final(x: torch.Tensor, weight: torch.Tensor,
         raise TypeError(f"deconv_final takes float32 or bfloat16, not {dtype}")
     # the weight goes to the kernel as float32 and is rounded there to the
     # compute dtype, like x; the bias stays float32
-    return _DeconvFinal.apply(x.to(dtype), weight.float(), bias.float())
+    if z_lo == 0 and z_out is None and x.shape[2] == x.shape[3] == x.shape[4]:
+        return _DeconvFinal.apply(x.to(dtype), weight.float(), bias.float())
+    return _DeconvFinalSlab.apply(x.to(dtype), weight.float(), bias.float(),
+                                  z_lo, z_out)

@@ -16,7 +16,9 @@ so every logger, ``TerminateOnNaN`` included, sees the same values on
 every rank, and a batch counts as the global batch.  ``initialize`` gives
 every rank rank 0's weights.  With ``opt.profile_step`` N, rank 0 runs
 its N-th train step under ``torch.profiler`` and writes the step's
-kernels and all-reduce times to ``<full_logdir>/profile_step.json``.
+kernels, all-reduce times, the spans of ``--sp`` (``sp.halo``,
+``sp.gather``) and K3's launches by shape to
+``<full_logdir>/profile_step.json``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch.distributed as dist
 
 from ..core.checkpoint import load_checkpoint, resume_path, save_checkpoint
 from ..data.loader import InfiniteLoader
+from ..ops.cuda import subpixel_kernel
 from ..parallel import mesh
 from .loggers import ComposeLogger, LogCumulator
 from .state import reference_payload_to_state, state_to_reference_payload
@@ -215,9 +218,11 @@ class Trainer:
 def profile_step(model, dev_batch) -> Tuple[Dict, Dict]:
     """One ``model.train_step`` under ``torch.profiler``: its metrics, and
     a report of its wall time, the process's peak device memory so far,
-    its device kernels by name (launches and device ms) and the
-    gradients' all-reduce (the CPU side of its span, and the device time
-    of NCCL's kernels)."""
+    its device kernels by name (launches and device ms), the gradients'
+    all-reduce (the CPU side of its span, and the device time of NCCL's
+    kernels), the spans of the Z halos and gathers (calls and CPU ms
+    each) and K3's launches on a box or a Z slab by shape, ``BxCinxXxYxZ
+    z<z_lo>+<z_out>``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cuda = model.device.type == "cuda"
@@ -226,6 +231,7 @@ def profile_step(model, dev_batch) -> Tuple[Dict, Dict]:
     sync = (lambda: torch.cuda.synchronize(model.device)) if cuda \
         else (lambda: None)
     sync()
+    shapes = dict(subpixel_kernel.slab_launches)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         metrics = model.train_step(dev_batch)
@@ -238,8 +244,15 @@ def profile_step(model, dev_batch) -> Tuple[Dict, Dict]:
                and not getattr(e, "is_user_annotation", False)}
     span = [e for e in events if e.key == mesh.GRAD_SPAN
             and e.device_type == DeviceType.CPU]
+    spans = {e.key: {"calls": e.count, "cpu_ms": e.cpu_time_total / 1e3}
+             for e in events if e.device_type == DeviceType.CPU
+             and e.key in (mesh.HALO_SPAN, mesh.GATHER_SPAN)}
+    k3_slabs = {
+        "{}x{}x{}x{}x{} z{}+{}".format(*k): n - shapes.get(k, 0)
+        for k, n in subpixel_kernel.slab_launches.items()
+        if n > shapes.get(k, 0)}
     return metrics, {
-        "rank": mesh.rank(), "world": mesh.world(),
+        "rank": mesh.rank(), "world": mesh.world(), "sp": mesh.size(mesh.SP),
         "device": str(model.device),
         "backend": dist.get_backend() if mesh.joined() else None,
         "wall_ms": wall * 1e3,
@@ -250,4 +263,4 @@ def profile_step(model, dev_batch) -> Tuple[Dict, Dict]:
             "cpu_ms": sum(e.cpu_time_total for e in span) / 1e3,
             "nccl_device_ms": sum(v["device_ms"] for k, v in kernels.items()
                                   if "nccl" in k.lower())},
-        "kernels": kernels}
+        "spans": spans, "k3_slabs": k3_slabs, "kernels": kernels}

@@ -84,11 +84,12 @@ def write_shapenet_tree(root, items):
         put(STATUS_AND_SUFFIX[key]["status"], flags)
 
 
-def script_argv(script, cls, env=None):
-    """The arguments that ``scripts/<script> <cls>`` passes to ``python -m
-    genre_shapehd_tpu.cli.train``, verbatim: the script runs with a
-    stand-in ``python`` first on PATH that records them (``env`` adds
-    variables, e.g. NET1 or INPAINT)."""
+def script_argv(script, cls, env=None,
+                module="genre_shapehd_tpu.cli.train"):
+    """The arguments that ``scripts/<script> <cls>`` (no argument for a
+    ``cls`` of None) passes to ``python -m <module>``, verbatim: the
+    script runs with a stand-in ``python`` first on PATH that records
+    them (``env`` adds variables, e.g. NET1 or INPAINT)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "argv")
@@ -98,10 +99,11 @@ def script_argv(script, cls, env=None):
                     'done > "$ARGV_FILE"\n')
         os.chmod(fake, 0o755)
         subprocess.run(
-            ["bash", os.path.join(repo, "scripts", script), cls],
+            ["bash", os.path.join(repo, "scripts", script)]
+            + ([] if cls is None else [cls]),
             check=True, env=dict(os.environ, **(env or {}), ARGV_FILE=out,
                                  PATH=d + os.pathsep + os.environ["PATH"]))
         with open(out) as f:
             argv = f.read().split("\0")[:-1]
-    assert argv[:2] == ["-m", "genre_shapehd_tpu.cli.train"], argv[:2]
+    assert argv[:2] == ["-m", module], argv[:2]
     return argv[2:]

@@ -12,9 +12,14 @@ and saves each rank's results to ``<out_dir>/rank<r>.pt``:
 
   RANK=r WORLD_SIZE=2 MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
       python tests/_torch_port_dist_cases.py <out_dir> <weights_dir> \\
-      [<device> [<case>,...]]
+      [<device> [<case>,...] [<sp>]]
 
 (the BatchNorm cases on ``device``, ``cuda:0`` in the card's test).
+With ``sp`` > 1 the ranks form a (world / sp, sp) grid and the
+spatial-parallel cases (:data:`SP_CASES`, ``tests/test_torch_port_sp.py``)
+run GenRe's 3D U-Net on Z slabs; they hold the large results against
+the references the parent test writes (:func:`agreement`) and return
+the summaries alone.
 
 Imports torch, numpy and the port only (no JAX): the parent test process
 holds the JAX side.
@@ -39,7 +44,9 @@ from genre_shapehd_tpu_torch.core.registry import (  # noqa: E402
     get_dataset, get_model)
 from genre_shapehd_tpu_torch.data.loader import collate  # noqa: E402
 from genre_shapehd_tpu_torch.models.base import default_opt  # noqa: E402
-from genre_shapehd_tpu_torch.nn.resnet import batch_norm  # noqa: E402
+from genre_shapehd_tpu_torch.nn import UNet3D, init_weights  # noqa: E402
+from genre_shapehd_tpu_torch.nn.resnet import (  # noqa: E402
+    _FlaxStats, batch_norm)
 from genre_shapehd_tpu_torch.parallel import mesh  # noqa: E402
 
 TINY = dict(im_size=64, vox_res=32, sph_res=32, z_res=32, padding_margin=16)
@@ -106,6 +113,12 @@ def make_model(kind: str, weights_dir: str = None, batch_size: int = B):
                           surface_weight=10.0, lr=LR, batch_size=batch_size,
                           synthetic_length=batch_size, **TINY)
         model = get_model("genre_full_model")(opt)
+    elif kind in ("sp_joint", "sp_stage3"):
+        opt = default_opt(device="cpu", joint_train=kind == "sp_joint",
+                          no_aug=True, surface_weight=10.0, lr=LR,
+                          batch_size=batch_size,
+                          synthetic_length=batch_size, **TINY)
+        model = get_model("genre_full_model")(opt)
     elif kind == "wgangp":
         opt = default_opt(device="cpu", canon_voxel=True, gan_d_iter=1,
                           lr=LR, batch_size=batch_size, vox_res=32,
@@ -144,9 +157,9 @@ def case_batch(kind: str, model, b: int = B) -> dict:
 
 
 def local(batch: dict) -> dict:
-    """This rank's slice of a global numpy batch."""
-    idx = mesh.shard_slice(len(next(iter(batch.values()))), mesh.world(),
-                           mesh.rank())
+    """This rank's slice of a global numpy batch: its dp index's."""
+    idx = mesh.shard_slice(len(next(iter(batch.values()))),
+                           mesh.size(mesh.DP), mesh.index(mesh.DP))
     return {k: v[idx] for k, v in batch.items()}
 
 
@@ -298,18 +311,211 @@ CASES = {
     "genre_joint": lambda w, dev: run_step("genre_joint", w)}
 
 
+# ---------------------------------------------------- spatial parallelism
+#: the 3D U-Net alone: float64, published width, 32³, batch 2
+UNET = dict(nf=20, res=32, batch=2)
+
+
+def unet_inputs():
+    """The U-Net's input (B, 32, 32, 32, 2) and the loss's weights."""
+    rng = np.random.default_rng(9)
+    shape = (UNET["batch"],) + (UNET["res"],) * 3
+    return (rng.standard_normal(shape + (2,)),
+            rng.standard_normal(shape))
+
+
+@contextlib.contextmanager
+def zero_halos():
+    """The negative control of the halos: every slab padded with zeros,
+    as if it were the volume."""
+    real = mesh.halo
+
+    def pad(x, lo, hi, align=1):
+        return torch.nn.functional.pad(
+            x, (lo, hi + (-(lo + x.shape[-1] + hi) % align)))
+    mesh.halo = pad
+    try:
+        yield
+    finally:
+        mesh.halo = real
+
+
+def run_unet(broken: bool = False) -> dict:
+    """The refine net alone in train mode, from a seeded start (float64),
+    on the whole input (one process) or on this rank's Z slab of it (sp
+    ranks, each holding every row): the logits, each layer's output and
+    the gradient of ``sum(logits * w) / B`` there, the input's gradient,
+    the parameters' gradients after the all-reduce (every one a slab's
+    share) and the running statistics.  ``broken``: zero halos."""
+    net = UNet3D(nf=UNET["nf"], res=UNET["res"])
+    init_weights(net, torch.Generator().manual_seed(0))
+    net.double().train()
+    x_all, w_all = unet_inputs()
+    sharded = mesh.size(mesh.SP) > 1
+    x = torch.from_numpy(x_all).requires_grad_(True)
+    acts = {}
+
+    def keep(name):
+        def hook(_, __, out):
+            out.retain_grad()
+            acts[name] = out
+        return hook
+    for name, m in net.named_children():
+        m.register_forward_hook(keep(name))
+    with zero_halos() if broken else contextlib.nullcontext():
+        xs = mesh.z_slab(x, 3, grad="gather") if sharded else x
+        out = net(xs, sharded=sharded)
+        loss = (out * torch.from_numpy(w_all)).sum() / UNET["batch"]
+        loss.backward()
+    mesh.all_reduce_grads(net.parameters(), net.parameters())
+    return {"out": out.detach(), "x_grad": x.grad,
+            "acts": {k: v.detach() for k, v in acts.items()},
+            "act_grads": {k: v.grad for k, v in acts.items()},
+            "grads": {k: p.grad for k, p in net.named_parameters()},
+            "stats": {k: v for k, v in net.state_dict().items()
+                      if "running_" in k}}
+
+
+def run_halo_align() -> dict:
+    """``mesh.halo`` of this rank's slab of 4 planes with a plane of each
+    neighbour, aligned to 8 (two zero planes after), and its backward of
+    a seeded gradient that is not zero on the align planes: the slab, the
+    halo'd slab, that gradient and the slab's gradient."""
+    g = torch.Generator().manual_seed(11 + mesh.index(mesh.SP))
+    x = torch.randn((2, 3, 4), generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    y = mesh.halo(x, 1, 1, align=8)
+    up = torch.randn(y.shape, generator=g, dtype=torch.float64)
+    y.backward(up)
+    return {"x": x.detach(), "y": y.detach(), "up": up, "x_grad": x.grad}
+
+
+def agreement(got: dict, ref: dict) -> dict:
+    """Per tensor of ``ref``: the cosine with ``got``, their norm ratio,
+    the largest absolute difference and ``ref``'s largest magnitude (the
+    summary the sp cases return instead of the tensors)."""
+    out = {}
+    for k, r in ref.items():
+        g, r = got[k].double().ravel(), r.double().ravel()
+        gn, rn = float(g.norm()), float(r.norm())
+        out[k] = (float(g @ r) / max(gn * rn, 1e-300), gn / max(rn, 1e-300),
+                  float((g - r).abs().max()), float(r.abs().max()))
+    return out
+
+
+@contextlib.contextmanager
+def sp_fault(model, fault):
+    """A fault of the sharded GenRe step: ``avg``, the refine net's
+    gradients averaged over sp instead of summed; ``cut``, the slab cut's
+    backward without its gather (each rank's 2D nets see their own
+    slab's voxel gradient); ``bn_slab``, the U-Net's slab layers'
+    BatchNorm reduced over the dp group (each rank's own slab); ``bn_sp``,
+    the 2D nets' BatchNorm reduced over the sp group (the dp index's rows
+    alone); ``bn_world``, the 2D nets' BatchNorm summed over the world,
+    count included, without the division by sp (the sp copies' rows
+    counted sp times in the sums and in the count alike: no fault)."""
+    if fault is None:
+        yield
+        return
+    saved = {}
+    if fault == "avg":
+        saved[model, "slab_params"] = model.slab_params
+        model.slab_params = lambda: []
+    elif fault == "cut":
+        real = mesh.z_slab
+        saved[mesh, "z_slab"] = real
+        mesh.z_slab = lambda x, dim, grad: real(x, dim, "local")
+    elif fault == "bn_slab":
+        real = mesh.all_reduce_sum
+        saved[mesh, "all_reduce_sum"] = real
+        mesh.all_reduce_sum = lambda t, g: real(
+            t, mesh.DP if g == mesh.WORLD else g)
+    elif fault in ("bn_sp", "bn_world"):
+        # in the BatchNorm layers alone (masked_mse's count also takes
+        # all_reduce_batch)
+        reduce = (lambda t: mesh.all_reduce_sum(t, mesh.SP)
+                  / mesh.size(mesh.SP)) if fault == "bn_sp" else \
+            (lambda t: mesh.all_reduce_sum(t, mesh.WORLD))
+        real_forward = _FlaxStats._global_forward
+        saved[_FlaxStats, "_global_forward"] = real_forward
+
+        def global_forward(self, x, sharded):
+            real = mesh.all_reduce_batch
+            mesh.all_reduce_batch = reduce
+            try:
+                return real_forward(self, x, sharded)
+            finally:
+                mesh.all_reduce_batch = real
+        _FlaxStats._global_forward = global_forward
+    else:
+        raise KeyError(fault)
+    try:
+        yield
+    finally:
+        for (obj, name), v in saved.items():
+            if obj is model:
+                del model.slab_params
+            else:
+                setattr(obj, name, v)
+
+
+def run_sp_step(kind: str, weights_dir: str, fault=None,
+                summarize: bool = True) -> dict:
+    """GenRe's step (``sp_joint`` or ``sp_stage3``) at the weights and the
+    pinned values in ``weights_dir``, on this rank's rows (its dp index's
+    slice) and, under sp, its Z slab of the U-Net: the loss terms, the
+    digest of the state after the step, and the agreement of the
+    gradients and the running statistics with ``<kind>_ref.pt`` (one
+    process) and, where it exists, ``<kind>_jax.pt`` (the JAX package);
+    without ``summarize``, the gradients and statistics themselves."""
+    for name in (f"{kind}.pt", f"{kind}_pins.pt") + (
+            (f"{kind}_ref.pt",) if summarize else ()):
+        wait_for(os.path.join(weights_dir, name))
+    model = make_model(kind, weights_dir)
+    batch = {k: torch.from_numpy(v)
+             for k, v in local(case_batch(kind, model)).items()}
+    pins = os.path.join(weights_dir, f"{kind}_pins.pt")
+    with pinned(model, pins), sp_fault(model, fault):
+        metrics = model.train_step(batch)
+    snap = snapshot(model, metrics)
+    out = {"loss": snap["loss"],
+           "digest": mesh.state_digest(model.net_modules().values())}
+    stats = {k: v for k, v in snap["state"].items() if "running_" in k}
+    if not summarize:
+        return {**out, "grads": snap["grads"], "stats": stats}
+    for ref_name in ("ref", "jax"):
+        path = os.path.join(weights_dir, f"{kind}_{ref_name}.pt")
+        if os.path.isfile(path):
+            ref = torch.load(path)
+            out[ref_name] = {"grads": agreement(snap["grads"], ref["grads"]),
+                             "stats": agreement(stats, ref["stats"])}
+    return out
+
+
+SP_CASES = {
+    "unet": lambda w, dev: run_unet(),
+    "unet_zero_halos": lambda w, dev: run_unet(broken=True),
+    "halo_align": lambda w, dev: run_halo_align(),
+    "sp_stage3": lambda w, dev: run_sp_step("sp_stage3", w),
+    "sp_joint": lambda w, dev: run_sp_step("sp_joint", w),
+    **{f"sp_joint_{f}": (lambda f: lambda w, dev: run_sp_step(
+        "sp_joint", w, f))(f)
+       for f in ("avg", "cut", "bn_slab", "bn_sp", "bn_world")}}
+
+
 def run_all(weights_dir: str, cases=tuple(CASES), device: str = "cpu"
             ) -> dict:
-    """The named cases of the data-parallel tests (BatchNorm's on
-    ``device``, the train steps on the CPU)."""
+    """The named cases of the data-parallel and spatial-parallel tests
+    (BatchNorm's on ``device``, the train steps on the CPU)."""
     torch.set_num_threads(2)
-    return {c: CASES[c](weights_dir, device) for c in cases}
+    return {c: {**CASES, **SP_CASES}[c](weights_dir, device) for c in cases}
 
 
 def spawn_ranks(out_dir: str, weights_dir: str, device: str = "cpu",
-                cases=tuple(CASES), world: int = 2):
+                cases=tuple(CASES), world: int = 2, sp: int = 1):
     """Start ``world`` processes running ``cases`` as the ranks of a gloo
-    group; each writes its output to ``<out_dir>/rank<r>.log``."""
+    group, laid out (world / sp, sp); each writes its output to
+    ``<out_dir>/rank<r>.log``."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -321,7 +527,7 @@ def spawn_ranks(out_dir: str, weights_dir: str, device: str = "cpu",
         with open(os.path.join(out_dir, f"rank{r}.log"), "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), out_dir,
-                 weights_dir, device, ",".join(cases)], env=env,
+                 weights_dir, device, ",".join(cases), str(sp)], env=env,
                 stdout=log, stderr=subprocess.STDOUT))
     return procs
 
@@ -350,9 +556,10 @@ def main(argv) -> int:
     out_dir, weights_dir = argv[:2]
     device = argv[2] if len(argv) > 2 else "cpu"
     cases = argv[3].split(",") if len(argv) > 3 else tuple(CASES)
+    sp = int(argv[4]) if len(argv) > 4 else 1
     if device != "cpu":
         torch.cuda.set_device(torch.device(device))
-    mesh.join("gloo", torch.device(device), timeout_s=120)
+    mesh.join("gloo", torch.device(device), timeout_s=120, sp=sp)
     try:
         results = run_all(weights_dir, cases, device)
         torch.save(results, os.path.join(out_dir, f"rank{mesh.rank()}.pt"))

@@ -196,3 +196,93 @@ def test_qualrun_torch_tiny_writes_the_jax_report(tmp_path):
         assert "| surface IoU @best th |" in text and "stage 0" in text
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
+
+
+def _tool_defaults(path, monkeypatch):
+    """The defaults of a tool's flags: its ``main`` run up to its parse,
+    which returns the parser's defaults instead."""
+    import argparse
+    import importlib.util
+
+    class Parsed(Exception):
+        pass
+
+    def capture(self, args=None, namespace=None):
+        raise Parsed({a.dest: a.default for a in self._actions})
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(path)[:-3], os.path.join(REPO, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", capture)
+        m.setattr(sys, "argv", [path])
+        with pytest.raises(Parsed) as e:
+            mod.main()
+    return e.value.args[0]
+
+
+def test_qualrun_torch_takes_the_jax_tools_stage_flags(tmp_path,
+                                                       monkeypatch):
+    """``tools/qualrun_torch.py --tiny --cpu --full_pipeline`` with the
+    JAX tool's stage flags (``--init0``, ``--lr0``, ``--lr0b``, ``--init2``,
+    ``--joint2``, ``--w25d``, ``--lr2``; their defaults the JAX tool's):
+    the report's config holds each value, stage 0 starts at ``--lr0``
+    from ``--init0``, stage 2 at ``--lr2`` from ``--init2``, jointly,
+    after the probe of its gradients into net1 (the JAX tool's
+    ``joint_grad_split`` keys, finite), in the JAX tool's stage order.
+    One step a stage, 2 scenes a batch, one held-out batch."""
+    new = ("init0", "lr0", "lr0b", "init2", "joint2", "w25d", "lr2")
+    ref = _tool_defaults("tools/qualrun.py", monkeypatch)
+    got = _tool_defaults("tools/qualrun_torch.py", monkeypatch)
+    assert {k: got[k] for k in new} == {k: ref[k] for k in new}
+    from genre_shapehd_tpu_torch.core.checkpoint import save_checkpoint
+    from genre_shapehd_tpu_torch.train.state import \
+        state_to_reference_payload
+    paths = {}
+    for net, flags in (("marrnet1", dict(pred_depth_minmax=True)),
+                       ("genre_full_model", {})):
+        model = get_model(net)(default_opt(device="cpu", **DIMS, **flags))
+        model.init_state(4)
+        paths[net] = str(tmp_path / f"{net}.pt")
+        save_checkpoint(paths[net], state_to_reference_payload(model, 0,
+                                                               0.0))
+    logdir = tmp_path / "q"
+    try:
+        res = subprocess.run(
+            [sys.executable, "tools/qualrun_torch.py", "--tiny", "--cpu",
+             "--full_pipeline", "--steps0", "1", "--steps0b", "1",
+             "--steps1", "1", "--steps2", "1", "--train_n", "8",
+             "--batch", "2", "--workers", "2", "--eval_batches", "1",
+             "--init0", paths["marrnet1"], "--lr0", "2e-3", "--lr0b",
+             "3e-4", "--init2", paths["genre_full_model"], "--joint2",
+             "--w25d", "0.5", "--lr2", "5e-4", "--logdir", str(logdir)],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, GENRE_PROCEDURAL_CACHE="",
+                     OMP_NUM_THREADS="2"))
+        assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+        report = json.loads((logdir / "qualrun.json").read_text())
+        cfg = report["config"]
+        assert {k: cfg[k] for k in new} == dict(
+            init0=paths["marrnet1"], lr0=2e-3, lr0b=3e-4,
+            init2=paths["genre_full_model"], joint2=True, w25d=0.5,
+            lr2=5e-4)
+        split = report["joint_grad_split"]
+        assert sorted(split) == ["net1_grad_norm_25d", "net1_grad_norm_vox",
+                                 "vox_over_25d"]
+        # the voxel loss reaches net1 only where its depth lands points in
+        # the cube, which one step of an untrained net1 need not do
+        assert all(np.isfinite(v) and v >= 0 for v in split.values()), split
+        assert split["net1_grad_norm_25d"] > 0, split
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith("[qualrun] ")]
+        order = ["stage0: marrnet1 at lr 0.002 from " + paths["marrnet1"],
+                 "stage0: {", "stage1: {", "untrained: ",
+                 "stage2: genre_full_model at lr 0.0005, joint (w25d 0.5) "
+                 "from " + paths["genre_full_model"],
+                 "joint grad split at stage-2 start", "stage2: {",
+                 "trained: "]
+        at = [next(i for i, ln in enumerate(lines)
+                   if ln.startswith("[qualrun] " + o)) for o in order]
+        assert at == sorted(at), list(zip(order, at))
+    finally:
+        shutil.rmtree(tmp_path, ignore_errors=True)

@@ -168,11 +168,22 @@ def test_deconv_final_gradient_matches_jax_vjp():
 
 
 def test_deconv_final_rejects_what_the_kernel_does_not_take():
+    """A cube, a box and a Z slab pass; x not 5-D, a Z range past x's or
+    from a position other than 0 or 1, a weight of more than one output
+    channel and a bias of more than one value raise."""
     x = torch.zeros(1, 3, 4, 4, 4)
     w, b = torch.zeros(3, 1, 4, 4, 4), torch.zeros(1)
     assert sk.deconv_final(x, w, b).shape == (1, 1, 8, 8, 8)
-    with pytest.raises(ValueError):
-        sk.deconv_final(torch.zeros(1, 3, 4, 4, 5), w, b)
+    assert sk.deconv_final(torch.zeros(1, 3, 4, 6, 5), w, b).shape == \
+        (1, 1, 8, 12, 10)
+    assert sk.deconv_final(torch.zeros(1, 3, 4, 4, 8), w, b, 1, 5).shape \
+        == (1, 1, 8, 8, 10)
+    for args in ((torch.zeros(3, 4, 4, 4), w, b),
+                 (torch.zeros(1, 3, 4, 4, 5), w, b, 1, 5),
+                 (torch.zeros(1, 3, 4, 4, 8), w, b, 2, 4),
+                 (torch.zeros(1, 3, 4, 4, 8), w, b, 0, 0)):
+        with pytest.raises(ValueError):
+            sk.deconv_final(*args)
     with pytest.raises(ValueError):
         sk.deconv_final(x, torch.zeros(3, 2, 4, 4, 4), b)
     with pytest.raises(ValueError):
@@ -180,3 +191,38 @@ def test_deconv_final_rejects_what_the_kernel_does_not_take():
     # only the one-channel k4 s2 p1 layer is routed to the kernel
     assert not Deconv3D(3, 2, 4, 2, 1).final
     assert not Deconv3D(3, 1, 8, 2, 3).final
+
+
+@pytest.mark.parametrize("shape,z_lo,z_out", [
+    ((2, 40, 8, 8, 10), 1, 8),          # dec6's slab: a halo plane a side
+    ((1, 7, 5, 6, 16), 1, 10),          # zero planes after the halo
+    ((2, 3, 4, 3, 9), 0, 9),            # a box
+    ((1, 5, 3, 3, 12), 0, 5)])          # the first planes of a box
+def test_deconv_final_on_a_z_slab_matches_the_cropped_layer(shape, z_lo,
+                                                           z_out):
+    """K3's function on a Z slab, on the CPU: the plain version (what
+    ``deconv_final`` runs on a CPU tensor), the kernel's GEMM formulation
+    and ``deconv_final_backward`` against ``F.conv_transpose3d`` over the
+    whole x, its output planes 2 z_lo .. 2 (z_lo + z_out) - 1 kept, and
+    autograd through that crop (float64: 1e-12 of the scale)."""
+    g = torch.Generator().manual_seed(sum(shape) + z_lo)
+    x = torch.randn(shape, generator=g, dtype=torch.float64)
+    w = torch.randn((shape[1], 1, 4, 4, 4), generator=g,
+                    dtype=torch.float64)
+    bias = torch.randn((1,), generator=g, dtype=torch.float64)
+    xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, bias))
+    ref = F.conv_transpose3d(xr, wr, br, stride=2, padding=1)[
+        ..., 2 * z_lo:2 * (z_lo + z_out)]
+    assert ref.shape == (shape[0], 1, 2 * shape[2], 2 * shape[3],
+                         2 * z_out)
+    want = ref.detach()
+    scale = float(want.abs().max())
+    for got in (sk.deconv_final(x, w, bias, z_lo, z_out),
+                sk.deconv_final_gemm(x, w, bias, z_lo, z_out)):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-12 * scale
+    grad = torch.randn(ref.shape, generator=g, dtype=torch.float64)
+    (ref * grad).sum().backward()
+    got = sk.deconv_final_backward(grad, x, w, (True, True, True), z_lo)
+    for a, r in zip(got, (xr.grad, wr.grad, br.grad)):
+        assert float((a - r).abs().max()) <= 1e-12 * float(r.abs().max())

@@ -11,7 +11,12 @@ baseline: the same JSON report and markdown as the JAX tool.
   stage 1: depth_pred_with_sph_inpaint (--net1_path <stage 0>, or the
            ground-truth depth oracle without --full_pipeline)
   stage 2: genre_full_model --inpaint_path <stage 1> --surface_weight 10
-           (--surface_weight), then --steps2b more at --lr_b
+           (--surface_weight), then --steps2b more at --lr_b; with
+           --joint2 the whole chain (--joint_train, --joint_w25d --w25d),
+           its gradients into net1 probed first (joint_grad_split)
+
+--init0 / --init2 warm-start stage 0 / stage 2 from a checkpoint, --lr0,
+--lr0b and --lr2 override a stage's learning rate, as in the JAX tool.
 
 Full size, on the card:
   python tools/qualrun_torch.py --full_pipeline --train_n 2048 \\
@@ -66,6 +71,33 @@ def fit(trainer, tl, vl, steps):
     spe = min(100, steps)
     return trainer.fit(tl, vl, epochs=max(steps // spe, 1),
                        steps_per_epoch=spe, eval_batches=2)
+
+
+def probe_joint_grad_split(model, loader):
+    """Under --joint2: L2 norms of the gradients into net1 of the voxel
+    loss and of the (``--w25d``-weighted) 2.5D loss, on the loader's
+    first batch at stage 2's start (the JAX tool's
+    ``probe_joint_grad_split``): the nets in train mode, their running
+    statistics left as they were."""
+    import torch
+    from genre_shapehd_tpu_torch.models.base import keep_batch_stats
+
+    batch = model.device_batch(next(iter(loader)))
+    params = list(model.net.depth_and_inpaint.net1.parameters())
+    model.net.train()
+    with keep_batch_stats(model.net):
+        pred = model.forward_batch(batch)
+        full, parts = model.compute_loss(pred, batch)
+    vox = parts["voxel_loss"] + parts["surface_loss"]
+    out = {}
+    for which, loss in (("vox", vox), ("25d", full - vox)):
+        grads = torch.autograd.grad(loss, params, retain_graph=True,
+                                    allow_unused=True)
+        out[f"net1_grad_norm_{which}"] = float(torch.sqrt(sum(
+            (g.double() ** 2).sum() for g in grads if g is not None)))
+    out["vox_over_25d"] = (out["net1_grad_norm_vox"]
+                           / max(out["net1_grad_norm_25d"], 1e-30))
+    return out
 
 
 def eval_quality(model, vl, max_batches=None, tag=""):
@@ -156,6 +188,27 @@ def main(argv=None):
                          "10; the JAX tool trains with the model default, 1)")
     ap.add_argument("--lr_b", type=float, default=None,
                     help="learning rate of the *b phases (default lr/10)")
+    ap.add_argument("--init0", default=None,
+                    help="warm-start stage 0 from a net1 checkpoint "
+                         "(continued training at --lr0)")
+    ap.add_argument("--lr0", type=float, default=None,
+                    help="stage 0's learning rate (default --lr)")
+    ap.add_argument("--lr0b", type=float, default=None,
+                    help="stage 0's *b learning rate (default --lr_b)")
+    ap.add_argument("--init2", default=None,
+                    help="warm-start stage 2 from a full-GenRe checkpoint "
+                         "(continued refinement, or joint fine-tuning with "
+                         "--joint2) instead of stage 1's inpainting net")
+    ap.add_argument("--joint2", action="store_true",
+                    help="stage 2 trains the whole chain end to end "
+                         "(--joint_train: the voxel loss's gradients reach "
+                         "net1 through the backprojections and the "
+                         "renderer)")
+    ap.add_argument("--w25d", type=float, default=0.01,
+                    help="stage 2's --joint_w25d: the weight of the 2.5D "
+                         "supervision beside the voxel loss")
+    ap.add_argument("--lr2", type=float, default=None,
+                    help="stage 2's learning rate (default --lr)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--train_n", type=int, default=1024,
@@ -216,15 +269,15 @@ def main(argv=None):
                   dtype="bfloat16", log_every=8, device=device.type,
                   **dims)
     os.makedirs(args.logdir, exist_ok=True)
-    # the JAX tool's config keys; its flags that this tool does not take
-    # (init0, lr0, lr0b, init2, joint2, w25d, lr2) hold their defaults
+    # the JAX tool's config keys
     report = {"config": {**common, "steps0": args.steps0,
                          "steps0b": args.steps0b, "steps1": args.steps1,
                          "steps2": args.steps2, "steps2b": args.steps2b,
                          "surface_weight": args.surface_weight,
-                         "lr_b": lr_b, "init0": None, "lr0": None,
-                         "lr0b": None, "init2": None, "joint2": False,
-                         "w25d": 0.01, "lr2": None, "offline": args.offline,
+                         "lr_b": lr_b, "init0": args.init0, "lr0": args.lr0,
+                         "lr0b": args.lr0b, "init2": args.init2,
+                         "joint2": args.joint2, "w25d": args.w25d,
+                         "lr2": args.lr2, "offline": args.offline,
                          "gtsph": args.gtsph, "gtminmax": args.gtminmax,
                          "full_pipeline": args.full_pipeline}}
     report["backend"] = (f"cuda ({torch.cuda.get_device_name(device)})"
@@ -237,12 +290,21 @@ def main(argv=None):
             report["stage0"] = {"reused": ckpt0}
         else:
             t0 = time.time()
-            opt0 = default_opt(**common, pred_depth_minmax=True)
+            opt0 = default_opt(**{**common, "lr": args.lr0 if args.lr0
+                                  is not None else args.lr},
+                               pred_depth_minmax=True)
             _, trainer0, tl0, vl0 = build("marrnet1", opt0)
+            if args.init0:
+                trainer0.load(args.init0)
+                trainer0.start_epoch = 0
+            print(f"[qualrun] stage0: marrnet1 at lr {opt0.lr}"
+                  + (f" from {args.init0}" if args.init0 else ""),
+                  flush=True)
             log0 = fit(trainer0, tl0, vl0, args.steps0)
             trainer0.save(ckpt0, epoch=args.steps0)
             if args.steps0b:
-                opt0b = default_opt(**{**common, "lr": lr_b},
+                lr0b = args.lr0b if args.lr0b is not None else lr_b
+                opt0b = default_opt(**{**common, "lr": lr0b},
                                     pred_depth_minmax=True)
                 _, trainer0, tl0, vl0 = build("marrnet1", opt0b)
                 trainer0.load(ckpt0)
@@ -276,7 +338,9 @@ def main(argv=None):
 
     # ---------------------------- untrained baseline (a fresh GenRe net)
     common2 = dict(common, gt_sph_full=args.gtsph,
-                   surface_weight=args.surface_weight)
+                   surface_weight=args.surface_weight,
+                   joint_train=args.joint2, joint_w25d=args.w25d,
+                   lr=args.lr2 if args.lr2 is not None else args.lr)
     model2, trainer2, tl2, vl2 = build("genre_full_model",
                                        default_opt(**common2))
     base_res, base_ex = eval_quality(model2, vl2, args.eval_batches,
@@ -285,8 +349,21 @@ def main(argv=None):
 
     # ---------------------------------------- stage 2: voxel refinement
     t0 = time.time()
-    if not args.gtsph:                     # --gtsph never runs net2
+    if args.init2:
+        # continued training (joint fine-tuning with --joint2) from a
+        # full-GenRe checkpoint of an earlier run
+        trainer2.load(args.init2)
+        trainer2.start_epoch = 0
+    elif not args.gtsph:                   # --gtsph never runs net2
         model2.load_subnet("depth_and_inpaint", ckpt1)
+    print(f"[qualrun] stage2: genre_full_model at lr {model2.opt.lr}"
+          + (f", joint (w25d {args.w25d})" if args.joint2 else "")
+          + (f" from {args.init2}" if args.init2 else ""), flush=True)
+    if args.joint2:
+        probe = probe_joint_grad_split(model2, tl2)
+        report["joint_grad_split"] = probe
+        print(f"[qualrun] joint grad split at stage-2 start: "
+              f"{json.dumps(probe)}", flush=True)
     log2 = fit(trainer2, tl2, vl2, args.steps2)
     ckpt2 = os.path.join(args.logdir, "genre.pt")
     trainer2.save(ckpt2, epoch=args.steps2)

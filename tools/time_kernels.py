@@ -8,6 +8,15 @@ kernel's bound.  Each result is held against the plain version first.
 
   k3_f32      K3 ``deconv_final`` at dec6's shape (8, 40, 64^3), float32,
               TF32 off (within 1e-5 of the output's scale)
+  k3_bf16     the same in bfloat16 (``chip_smoke.k3_bf16_within``)
+  k3_host     the host's time to return from one call at dec6's cube,
+              float32 and bfloat16 (as stage2_host): of K3's wrapper, of
+              its ``_launch`` and of its C entry point alone; and of one
+              call right after a synchronize, as the events see it
+  k3_slab     K3 at dec6's Z slab under ``cli.train --sp 2``: (4, 40,
+              64 x 64 x 32) with a halo plane at each end, padded to 40
+              planes (output planes of positions 1 .. 32), bfloat16 and
+              float32 (a tree whose K3 takes no slab skips it)
   k4          K4 ``nn_min_dist`` at 8 x 8192 x 8192 and at the scoring
               path's 1 x 1024 x 1024 (rtol 1e-4, atol 1e-5)
   stage2_host the host's time to return from one call of the renderer's
@@ -89,6 +98,48 @@ def k3_f32(cs, dev, g, flush, args, timed):
         "bound_by": bnd[1]}}
 
 
+def k3_bf16(cs, dev, g, flush, args, timed):
+    import torch
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    b, cin, s = (cs.DEC6[k] for k in ("b", "cin", "s"))
+    bf = torch.bfloat16
+    x = torch.randn((b, cin, s, s, s), generator=g, device=dev).to(bf)
+    w = torch.randn((cin, 1, 4, 4, 4), generator=g, device=dev) * 0.05
+    bias = torch.full((1,), 0.1, device=dev)
+    ref = sk.deconv_final_plain(x, w, bias).float()
+    err = float((sk.deconv_final(x, w, bias).float() - ref).abs().max())
+    cs.check(err <= 1e-2 * float(ref.abs().max()),
+             f"K3 bf16 vs plain: {err}")
+    del ref
+    fn = lambda: sk.deconv_final(x, w, bias)               # noqa: E731
+    timed["deconv_final_bf16"] = (fn, "deconv_final")
+    n_out = b * (2 * s) ** 3
+    bnd = cs.bound(x.numel() * 2 + cin * 64 * 4 + 4 + n_out * 2,
+                   2.0 * 8 * cin * n_out, cs.H100_BF16_FLOPS)
+    return {"deconv_final_bf16": {
+        "shape": [b, cin, s], "max_abs_err": err,
+        "ms": cs.time_ms(fn, flush, args.reps), "bound_ms": bnd[0],
+        "bound_by": bnd[1]}}
+
+
+def k3_slab(cs, dev, g, flush, args, timed):
+    import inspect
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    if "z_lo" not in inspect.signature(sk.deconv_final).parameters:
+        return {"deconv_final_slab": "this tree's K3 takes no Z slab"}
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        row = cs.k3_slab_row(dev, g, dtype)
+        fn = row.pop("call")
+        del row["plain"], row["library"]
+        row["bound_ms"], row["bound_by"], _ = row.pop("bound")
+        key = f"deconv_final_slab_{dtype}"
+        timed[key] = (fn, "deconv_final")
+        row["ms"] = cs.time_ms(fn, flush, args.reps)
+        out[key] = row
+    return out
+
+
 def k4(cs, dev, g, flush, args, timed):
     import torch
     from genre_shapehd_tpu_torch.ops.cuda import chamfer_kernel as ck
@@ -140,7 +191,61 @@ def stage2_host(cs, dev, g, flush, args, timed):
     return out
 
 
-KERNELS = {"k3_f32": k3_f32, "k4": k4, "stage2_host": stage2_host}
+def k3_host(cs, dev, g, flush, args, timed):
+    import ctypes
+    import torch
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    b, cin, s = (cs.DEC6[k] for k in ("b", "cin", "s"))
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x = torch.randn((b, cin, s, s, s), generator=g, device=dev).to(dtype)
+        w = torch.randn((cin, 1, 4, 4, 4), generator=g, device=dev) * 0.05
+        bias = torch.full((1,), 0.1, device=dev)
+        sk.deconv_final(x, w, bias)                   # built and loaded
+        lib = sk._library()
+        o = torch.empty((b, 1, 2 * s, 2 * s, 2 * s), dtype=dtype, device=dev)
+        w64 = w.reshape(cin, 64).contiguous()
+        entry_args = [ctypes.c_void_p(t.data_ptr()) for t in (x, w64, bias, o)]
+        entry_args += [sk._DTYPE_CODE[dtype], b, cin, s, ctypes.c_void_p(
+            torch.cuda.current_stream().cuda_stream)]
+        fns = {
+            "wrapper": lambda: sk.deconv_final(x, w, bias),
+            "launch": lambda: sk._launch(x, w, bias),
+            "entry": lambda: lib.deconv_final(*entry_args)}
+        for fn in fns.values():
+            for _ in range(5):
+                fn()
+        torch.cuda.synchronize()
+        host = {k: [] for k in fns}
+        for _ in range(7):
+            for k, fn in fns.items():
+                t0 = time.perf_counter()
+                for _ in range(args.calls):
+                    fn()
+                host[k].append((time.perf_counter() - t0) / args.calls * 1e6)
+                torch.cuda.synchronize()
+        # one call as chip_smoke.time_ms times it: after the L2 flush is
+        # queued behind a synchronize
+        after_sync = {k: [] for k in fns}
+        for _ in range(args.reps):
+            for k, fn in fns.items():
+                flush.zero_()
+                t0 = time.perf_counter()
+                fn()
+                after_sync[k].append((time.perf_counter() - t0) * 1e6)
+                torch.cuda.synchronize()
+        out[f"deconv_final_{name}_host"] = {
+            "calls": args.calls, "host_us": host,
+            "host_us_median": {k: statistics.median(v)
+                               for k, v in host.items()},
+            "after_sync_us_median": {k: statistics.median(v)
+                                     for k, v in after_sync.items()}}
+    return out
+
+
+KERNELS = {"k3_f32": k3_f32, "k3_bf16": k3_bf16, "k3_slab": k3_slab,
+           "k3_host": k3_host,
+           "k4": k4, "stage2_host": stage2_host}
 
 
 def main() -> int:
@@ -149,7 +254,7 @@ def main() -> int:
     ap.add_argument("--root", default=HERE, help="checkout holding the port")
     ap.add_argument("--reps", type=int, default=25)
     ap.add_argument("--calls", type=int, default=100,
-                    help="calls a batch for stage2_host")
+                    help="calls a batch for stage2_host and k3_host")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import chip_smoke as cs                   # this tree's helpers
