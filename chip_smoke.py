@@ -134,6 +134,22 @@ raising on failure:
     profiled step's kernels, K3's slab launches by shape and the ``sp.halo``
     and ``sp.gather`` spans.
 
+12. the reference release's checkpoints: GenRe's (phase 3's seeded
+    weights with seeded Adam moments at step 2), ShapeHD's three nets and
+    a MarrNet-1, written in the reference's layout and PyTorch's legacy
+    format (``reference_layout``, the inverse of the port's tables) and
+    converted by ``tools/convert_reference_checkpoint_torch.py`` in
+    parallel processes, with no key left unread; ``cli.test --net
+    genre_full_model`` and ``--net shapehd --marrnet1_file`` on 8 of
+    phase 3's photos, bf16, from the converted files and from the port's
+    own checkpoints of the same weights: the ``.npz`` bit for bit under
+    deterministic algorithms, K1, K2, K3 once a GenRe forward, K3 twice a
+    ShapeHD one; ``cli.train --joint_train --resume -1`` from the
+    converted GenRe file for one step: a finite loss, Adam's count 2 -> 3,
+    K1, K2, K3 and K5 launched, and the weights at least 0.1 lr (mean
+    |difference|) from the step resumed from the same file with its
+    moments zeroed.  ``[refckpt]`` lines, with the phase's wall time.
+
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Scratch files go to build/chip_smoke/ under the repository.
 """
@@ -2949,6 +2965,415 @@ def phase_sp(work, dp):
     return run
 
 
+# ------------------------------------------------- reference checkpoints
+# The reference release's layout of this package's nets, the inverse of
+# genre_shapehd_tpu_torch/core/reference.py's tables (the package has no
+# exporter: the reference is what writes these files)
+_BLOCK = {"ConvBN_0.Conv_0": "conv1", "ConvBN_0.BatchNorm_0": "bn1",
+          "Conv_0": "conv2", "BatchNorm_0": "bn2", "Conv_1": "downsample.0",
+          "BatchNorm_1": "downsample.1"}
+_REV_BLOCK = {"Deconv_0.ConvTranspose_0": "deconv1", "BatchNorm_0": "bn1",
+              "Deconv_1.ConvTranspose_0": "deconv2", "BatchNorm_1": "bn2",
+              "Deconv_2.ConvTranspose_0": "upsample.0",
+              "BatchNorm_2": "upsample.1"}
+_DECODER_TAIL = {"Deconv_0.ConvTranspose_0": "4.0", "BatchNorm_0": "4.1",
+                 "Deconv_1.ConvTranspose_0": "4.3"}
+_MINMAX = {"Conv_0": "0", "Conv_1": "1", "Dense_0": "3", "BatchNorm_0": "4",
+           "Dense_1": "6", "BatchNorm_1": "7", "Dense_2": "9"}
+#: a voxel net's layers of each kind by their Sequential index in ``main``
+_VOXEL_DECODER = {"Deconv3D": (0, 3, 8, 11, 14, 17),
+                  "BatchNorm": (1, 4, 9, 12, 15)}
+_GENERATOR = {"Deconv3D": (0, 3, 6, 9, 12, 15), "BatchNorm": (1, 4, 7, 10, 13)}
+_CRITIC = {"Conv3D": (0, 2, 4, 6, 8, 10)}
+
+
+def _torchvision(mod):
+    """A ``ResNet18Features`` module -> torchvision's name of it."""
+    m = re.fullmatch(r"BasicBlock_(\d)\.(.+)", mod)
+    if m:
+        i = int(m[1])
+        return f"layer{i // 2 + 1}.{i % 2}.{_BLOCK[m[2]]}"
+    return {"Conv_0": "conv1", "BatchNorm_0": "bn1"}[mod]
+
+
+def _uresnet(mod):
+    """A ``UResNet`` module -> ``uresnet.Net``'s (and MarrNet-1's)."""
+    head, _, rest = mod.partition(".")
+    if head == "ResNet18Features_0":
+        tv = _torchvision(rest)
+        return "encoder." + {"conv1": "0.0", "bn1": "0.1"}.get(
+            tv, tv[len("layer"):])
+    if head == "MinmaxHead_0":
+        return "decoder_minmax." + _MINMAX[rest]
+    m = re.fullmatch(r"RevLayer_(\d)\.RevBasicBlock_(\d)\.(.+)", rest)
+    if m:
+        return f"{head}.{m[1]}.{m[2]}.{_REV_BLOCK[m[3]]}"
+    return f"{head}.{_DECODER_TAIL[rest]}"
+
+
+def _seq(mod, layers):
+    """``<Kind>_<k>[.<inner>]`` -> its index in a voxel net's ``main``."""
+    m = re.fullmatch(r"(\w+?)_(\d+)(\.\w+)?", mod)
+    return f"main.{layers[m[1]][int(m[2])]}"
+
+
+def _marrnet2(mod):
+    head, _, rest = mod.partition(".")
+    if head == "VoxelDecoder_0":
+        return "decoder." + _seq(rest, _VOXEL_DECODER)
+    if rest == "Dense_0":
+        return "encoder.main.0.fc"
+    return "encoder.main.0." + _torchvision(rest.partition(".")[2])
+
+
+def _unet3d(mod):
+    kind, k = re.fullmatch(r"(\w+?)_(\d+)(?:\.\w+)?", mod).groups()[:2]
+    k = int(k)
+    if kind == "Conv3D":
+        return f"enc{k + 1}.net.0"
+    if kind == "BatchNorm":
+        return f"enc{k + 1}.net.1" if k < 6 else f"dec{k - 5}.net.1"
+    if kind == "Dense":
+        return "full_conv_block.0"
+    return f"dec{k + 1}.net.0" if k < 5 else "dec6.net"
+
+
+def _under(prefixes):
+    """A module of a composite net: its first component picks the
+    converter of the rest."""
+    def f(mod):
+        head, _, rest = mod.partition(".")
+        return f"{head}.{prefixes[head](rest)}"
+    return f
+
+
+def _depth_inpaint(mod):
+    return _under({"net1": _uresnet, "net2": _uresnet})(mod)
+
+
+#: model alias -> {the port's net name: (index of the file's net, module
+#: name -> the reference's)}
+REFERENCE_LAYOUT = {
+    "marrnet1": {"net": (0, _uresnet)},
+    "marrnet2": {"net": (0, _marrnet2)},
+    "marrnet": {"net": (0, _under({"marrnet1": _uresnet,
+                                   "marrnet2": _marrnet2}))},
+    "wgangp": {"net_g": (0, lambda m: _seq(m, _GENERATOR)),
+               "net_d": (1, lambda m: _seq(m, _CRITIC))},
+    "shapehd": {"net": (0, lambda m: "marrnet2." + _marrnet2(m)),
+                "net_noft": (0, lambda m: "marrnet2_noft." + _marrnet2(m)),
+                "net_d": (0, lambda m: "d." + _seq(m, _CRITIC))},
+    "depth_pred_with_sph_inpaint": {"net": (0, _depth_inpaint)},
+    "genre_full_model": {"net": (0, _under({
+        "depth_and_inpaint": _depth_inpaint, "refine_net": _unet3d}))},
+    "resnet18": {"net": (0, _torchvision)},
+}
+
+
+def reference_layout(alias, nets, batches_tracked=True):
+    """The reference release's ``state_dict``s (its ``nets`` list) of this
+    package's nets of model ``alias`` ({net name: state_dict}), in the
+    order of each net's keys; ``batches_tracked=False`` leaves out the
+    BatchNorms' ``num_batches_tracked``."""
+    files = {}
+    for name, sd in nets.items():
+        i, rename = REFERENCE_LAYOUT[alias][name]
+        out = files.setdefault(i, {})
+        for key, v in sd.items():
+            mod, leaf = key.rsplit(".", 1)
+            if batches_tracked or leaf != "num_batches_tracked":
+                out[f"{rename(mod)}.{leaf}"] = v
+    return [files[i] for i in sorted(files)]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (``index_add_``, the
+    backprojections' scatter, by sorting instead of atomics; cuDNN's
+    deterministic convolutions), so that two runs on equal weights give
+    equal bits; ops without such an algorithm only warn."""
+    import torch
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.deterministic = was[2]
+
+
+def seeded_adam(sd, seed, step=2):
+    """A torch Adam ``state_dict`` over every parameter of the reference
+    ``state_dict`` ``sd``, ids in its order: exp_avg ~ 1e-3 N(0, 1),
+    exp_avg_sq ~ 1e-6 U(0, 1), ``step``."""
+    import torch
+    from genre_shapehd_tpu_torch.core.reference import param_names
+    g = torch.Generator().manual_seed(seed)
+    names = param_names(sd)
+    return {"state": {i: {
+        "step": step,
+        "exp_avg": 1e-3 * torch.randn(sd[k].shape, generator=g),
+        "exp_avg_sq": 1e-6 * torch.rand(sd[k].shape, generator=g)}
+        for i, k in enumerate(names)}, "param_groups": [{
+            "lr": 1e-4, "betas": (0.5, 0.9), "eps": 1e-8, "weight_decay": 0,
+            "amsgrad": False, "params": list(range(len(names)))}]}
+
+
+def convert_reference(jobs):
+    """``tools/convert_reference_checkpoint_torch.py`` as a user runs it,
+    one process per ``(alias, src, dst)``, all at once; fails on a non-zero
+    exit or a key the tool did not read.  Returns the seconds of all."""
+    tool = os.path.join(ROOT, "tools", "convert_reference_checkpoint_torch.py")
+    t0 = time.perf_counter()
+    procs = [(alias, subprocess.Popen(
+        [sys.executable, tool, "--src", src, "--net", alias, "--dst", dst],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for alias, src, dst in jobs]
+    try:
+        for alias, p in procs:
+            out, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"[refckpt] converting {alias}: exit "
+                  f"{p.returncode}: {out} {err[-2000:]}")
+            check("unread" not in err, f"[refckpt] {alias}: {err[-2000:]}")
+            log(f"[refckpt] {out.strip()}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.perf_counter() - t0
+
+
+def phase_reference_checkpoints(device, work, genre_ckpt, photos):
+    """The reference release's checkpoints, converted by the port's tool
+    without JAX and read by the users' entry points: GenRe (phase 3's
+    seeded checkpoint in the reference's layout, with seeded Adam moments
+    at step 2) and ShapeHD's three nets with a MarrNet-1 (seeded), written
+    as the reference writes them (``torch.save``, PyTorch's legacy
+    format), converted in parallel processes.  ``cli.test`` on 8 of phase
+    3's photos, bf16, batch 8, from each converted file and from the
+    port's own checkpoint of the same weights: the ``.npz`` bit for bit
+    (deterministic algorithms in both), K1, K2, K3 once a GenRe forward,
+    K3 twice a ShapeHD one.  Then ``cli.train --net genre_full_model
+    --joint_train --resume -1`` from the converted file for one step (and
+    its eval batch): a finite loss, Adam's count 2 -> 3, K1, K2, K3, K5;
+    and from the file with its moments zeroed, whose weights must end
+    elsewhere (mean |difference| over 0.1 lr): the moments were read."""
+    import torch
+    from genre_shapehd_tpu_torch.cli import test as cli_test
+    from genre_shapehd_tpu_torch.cli import train as cli_train
+    from genre_shapehd_tpu_torch.core.checkpoint import (
+        load_checkpoint, net_payload, save_checkpoint)
+    from genre_shapehd_tpu_torch.core.convert import (jax_to_torch,
+                                                      torch_to_jax)
+    from genre_shapehd_tpu_torch.models.marrnet import marrnet1_net
+    from genre_shapehd_tpu_torch.models.marrnet2 import Marrnet2Net
+    from genre_shapehd_tpu_torch.nn import VoxelDiscriminator, init_weights
+    from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
+    from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
+    from genre_shapehd_tpu_torch.train.state import (
+        EmptyState, ScaleByAdamState, adam_moments)
+    t_phase = time.perf_counter()
+    d = os.path.join(work, "refckpt")
+    os.makedirs(d)
+    path = lambda name: os.path.join(d, name)                # noqa: E731
+
+    def legacy_save(obj, name):
+        torch.save(obj, path(name), _use_new_zipfile_serialization=False)
+
+    # the reference's files: GenRe with its optimizer, ShapeHD's nets and
+    # the MarrNet-1 its test path reads
+    own = load_checkpoint(genre_ckpt)["nets"][0]
+    ref = reference_layout("genre_full_model", {"net": jax_to_torch(
+        own["params"], own["batch_stats"])})
+    legacy_save({"nets": ref, "optimizers": [seeded_adam(ref[0], 12)],
+                 "epoch": 2}, "genre_full_model_ref.pt")
+    shd = {}
+    for i, (name, net) in enumerate((("net", Marrnet2Net()),
+                                     ("net_noft", Marrnet2Net()),
+                                     ("net_d", VoxelDiscriminator(64, 128)),
+                                     ("marrnet1", marrnet1_net(256)))):
+        init_weights(net, torch.Generator().manual_seed(20 + i))
+        shd[name] = net.state_dict()
+    m1 = {"net": shd.pop("marrnet1")}
+    save_checkpoint(path("shapehd_own.pt"), {
+        "nets": [dict(zip(("params", "batch_stats"), torch_to_jax(sd)))
+                 for sd in shd.values()],
+        "optimizers": [], "epoch": 0, "loss_eval": 0.0,
+        "net_names": list(shd), "opt_names": []})
+    save_checkpoint(path("marrnet1_own.pt"),
+                    net_payload(*torch_to_jax(m1["net"])))
+    legacy_save({"nets": reference_layout("shapehd", shd), "optimizers": [],
+                 "epoch": 0}, "shapehd_ref.pt")
+    legacy_save({"nets": reference_layout("marrnet1", m1), "optimizers": [],
+                 "epoch": 0}, "marrnet1_ref.pt")
+    t_write = time.perf_counter() - t_phase
+    t_convert = convert_reference([
+        (a, path(f"{a}_ref.pt"), path(f"{a}.pt"))
+        for a in ("genre_full_model", "shapehd", "marrnet1")])
+    conv = load_checkpoint(path("genre_full_model.pt"))
+    for tree in ("params", "batch_stats"):
+        check(_same_tree(conv["nets"][0][tree], own[tree]),
+              f"[refckpt] the converted GenRe {tree} differ from phase 3's")
+    count, mu, _ = adam_moments(conv["optimizers"][0])
+    check(count == 2 and conv["epoch"] == 2, f"[refckpt] count {count}, "
+          f"epoch {conv['epoch']}")
+
+    # cli.test from the converted files and from the port's own.  The
+    # meshes are drawn at the occupancy level 0.9: seeded random nets give
+    # sigmoid(logits) of 0.47-0.53 over nearly all voxels, whose mesh at
+    # 0.5 is 234 MB of .obj and 8.7 s on an H100
+    vis_param = path("vis_param.json")
+    with open(vis_param, "w") as f:
+        json.dump({"voxel": {"isosurf_thres": 0.9}}, f)
+    tests = {}
+    for tag, net, ckpt, extra, want in (
+            ("genre_own", "genre_full_model", genre_ckpt, [], (1, 1)),
+            ("genre_converted", "genre_full_model",
+             path("genre_full_model.pt"), [], (1, 1)),
+            ("shapehd_own", "shapehd", path("shapehd_own.pt"),
+             ["--marrnet1_file", path("marrnet1_own.pt")], (0, 2)),
+            ("shapehd_converted", "shapehd", path("shapehd.pt"),
+             ["--marrnet1_file", path("marrnet1.pt")], (0, 2))):
+        out_dir = path(f"test_{tag}")
+        rk.reset_launches()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        with deterministic():
+            rc = cli_test.main(["--net", net, "--net_file", ckpt] + extra + [
+                "--input_rgb", os.path.join(photos, "0[0-7]_rgb.png"),
+                "--input_mask", os.path.join(photos, "0[0-7]_silhouette.png"),
+                "--output_dir", out_dir, "--dtype", "bfloat16",
+                "--batch_size", "8", "--vis_workers", "8", "--vis_param_f",
+                vis_param, "--device", "cuda"])
+            torch.cuda.synchronize()
+        launches = {**rk.launches, **sk.launches}
+        k12, k3 = want
+        check(rc == 0 and launches == {
+            "render_stage1": k12, "render_stage2_scan": k12,
+            "render_stage2_samples": 0, "deconv_final": k3},
+            f"[refckpt] cli.test {tag}: rc {rc}, launches {launches}")
+        with np.load(os.path.join(out_dir, "batch0000.npz")) as z:
+            out = {k: z[k] for k in z.files}
+        check(out["pred_voxel"].shape == (8, 128, 128, 128)
+              and bool(np.isfinite(out["pred_voxel"]).all()),
+              f"[refckpt] {tag}: pred_voxel {out['pred_voxel'].shape}")
+        tests[tag] = dict(out=out, launches=launches,
+                          seconds=time.perf_counter() - t0)
+    for net in ("genre", "shapehd"):
+        a, b = tests[f"{net}_own"]["out"], tests[f"{net}_converted"]["out"]
+        diff = {k: float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                for k in a if a[k].dtype.kind == "f" and k in b}
+        check(sorted(a) == sorted(b) and all(
+            np.array_equal(a[k], b[k]) for k in a),
+            f"[refckpt] cli.test {net}: the converted file's output differs "
+            f"from the port's own checkpoint's: max |diff| {diff}")
+        log(f"[refckpt] cli.test --net {net} on 8 photos, bf16: the "
+            f"converted file's .npz equals the own checkpoint's bit for bit "
+            f"({', '.join(sorted(a))}); launches "
+            f"{json.dumps(tests[f'{net}_converted']['launches'])}; "
+            f"{tests[f'{net}_own']['seconds']:.1f} / "
+            f"{tests[f'{net}_converted']['seconds']:.1f} s wall (own / "
+            f"converted)")
+
+    # a resumed joint step: from the converted file, and from it with
+    # Adam's moments zeroed
+    zeroed = dict(conv, optimizers=[(ScaleByAdamState(
+        np.asarray(count, np.int32),
+        _zeros(mu), _zeros(mu)), EmptyState())])
+    save_checkpoint(path("genre_zeroed.pt"), zeroed)
+    del conv, zeroed, mu
+    logdir = path("train")
+    base = ["--net", "genre_full_model", "--joint_train", "--dataset",
+            "synthetic", "--batch_size", "4", "--dtype", "bfloat16",
+            "--surface_weight", "10", "--lr", "1e-4", "--epoch", "3",
+            "--epoch_batches", "1", "--eval_batches", "1",
+            "--synthetic_length", "8", "--workers", "4", "--logdir",
+            logdir, "--log_batch", "--manual_seed", "0", "--save_net", "0",
+            "--vis_batches_vali", "0", "--resume", "-1", "--device", "cuda"]
+    trained, train_launches = {}, {}
+    for tag, ckpt, expr in (
+            ("converted", path("genre_full_model.pt"), "0"),
+            ("zeroed", path("genre_zeroed.pt"), "1")):
+        run_dir = os.path.join(logdir, "genre_full_model_synthetic_0.0001",
+                               expr)
+        os.makedirs(run_dir)
+        os.link(ckpt, os.path.join(run_dir, "checkpoint.pt"))
+        rk.reset_launches()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_train.main(base + ["--expr_id", expr])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {**rk.launches, **sk.launches}
+        want = {"render_stage1": 3, "render_stage2_scan": 2,
+                "render_stage2_samples": 1, "deconv_final": 2}
+        check(rc == 0 and launches == want, f"[refckpt] cli.train {tag}: "
+              f"rc {rc}, launches {launches} != {want}")
+        rows = _csv_rows(os.path.join(run_dir, "batch_loss.csv"))
+        loss = [float(r["loss"]) for r in rows]
+        payload = load_checkpoint(os.path.join(run_dir, "checkpoint.pt"))
+        after = adam_moments(payload["optimizers"][0])[0]
+        check(len(loss) == 1 and bool(np.isfinite(loss).all())
+              and after == 3 and payload["epoch"] == 3,
+              f"[refckpt] cli.train {tag}: loss {loss}, Adam count {after}, "
+              f"epoch {payload['epoch']}")
+        trained[tag] = _flat_net(payload["nets"][0])
+        train_launches[tag] = launches
+        log(f"[refckpt] cli.train --resume -1 from the {tag} file "
+            f"({'seeded' if tag == 'converted' else 'zero'} moments): 1 joint "
+            f"step of batch 4, bf16, loss {loss[0]:.5f}, Adam count 2 -> "
+            f"{after}, launches {json.dumps(launches)}, {seconds:.1f} s "
+            f"wall")
+        del payload
+        os.remove(os.path.join(run_dir, "checkpoint.pt"))
+    start = jax_to_torch(own["params"], {})
+    lr = 1e-4
+    moved = float(statistics.fmean(
+        float((trained["converted"][k] - v).abs().mean()) for k, v in
+        start.items()))
+    apart = float(statistics.fmean(
+        float((trained["converted"][k] - trained["zeroed"][k]).abs().mean())
+        for k in start))
+    check(moved > 0.1 * lr and apart > 0.1 * lr,
+          f"[refckpt] the resumed step moved the weights by {moved / lr:.3f}"
+          f" lr on average, and {apart / lr:.3f} lr from the zeroed "
+          f"moments' step: under 0.1 lr")
+    seconds = time.perf_counter() - t_phase
+    launches = {k: sum(r["launches"][k] for r in tests.values())
+                + sum(r[k] for r in train_launches.values())
+                for k in ("render_stage1", "render_stage2_scan",
+                          "render_stage2_samples", "deconv_final")}
+    log(f"[refckpt] negative control: the step from the file's moments "
+        f"moved each weight {moved / lr:.3f} lr on average (mean over "
+        f"tensors of the mean |change|); from the same file with zeroed "
+        f"moments it ends {apart / lr:.3f} lr away")
+    log(f"[refckpt] phase 12: {seconds:.1f} s wall (reference files "
+        f"written in {t_write:.1f} s, converted in {t_convert:.1f} s); "
+        f"launches {json.dumps(launches)}")
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, launches=launches, moved_lr=moved / lr,
+                apart_lr=apart / lr)
+
+
+def _zeros(tree):
+    return {k: _zeros(v) if isinstance(v, dict) else np.zeros_like(v)
+            for k, v in tree.items()}
+
+
+def _same_tree(a, b):
+    if isinstance(b, dict):
+        return isinstance(a, dict) and sorted(a) == sorted(b) and all(
+            _same_tree(a[k], b[k]) for k in b)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        np.array_equal(a, b))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3033,6 +3458,8 @@ def main() -> int:
     del flush
     dp = phase_dp(work)
     sp = phase_sp(work, dp)
+    refckpt = phase_reference_checkpoints(device, work, ckpt,
+                                          os.path.join(work, "photos"))
 
     kernels = []
     for name in ("render_stage1", "render_stage2_scan", k3, k4, k5):
@@ -3059,7 +3486,10 @@ def main() -> int:
             "launches_dp": {k: r["launches"].get(name, 0)
                             for k, r in dp.items()},
             # rank 0's profiled step of phase 11 (dp 1 x sp 2)
-            "launches_sp": sp["launches"].get(name, 0)})
+            "launches_sp": sp["launches"].get(name, 0),
+            # phase 12: cli.test and cli.train on converted reference files
+            # (and cli.test on the port's own checkpoints of their weights)
+            "launches_reference": refckpt["launches"].get(name, 0)})
     # K4 is timed at 8 x 8192 x 8192 points; the scoring path gives it the
     # eval protocol's 1 x 1024 x 1024, where launch latency dominates
     ev = k4_times[eval_shape]
@@ -3115,6 +3545,7 @@ def main() -> int:
         + ", ".join(f"{k} {v['step_ms']:.1f} ms" for k, v in dp.items())
         + f"; spatial parallel (dp 1 x sp 2, 2 gloo ranks on the card), "
         f"float32, batch 4: {sp['step_ms']:.1f} ms"
+        + f"; reference checkpoints (phase 12) {refckpt['seconds']:.1f} s"
         + f"; total {time.perf_counter() - t_start:.0f} s")
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernels}), flush=True)

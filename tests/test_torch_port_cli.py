@@ -191,11 +191,20 @@ def test_cli_matches_jax_test_on_batch(tmp_path):
                 assert png.read_png(path).shape[2] == 3
 
 
+#: what the port and its tools must run without
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "genre_shapehd_tpu", "tools")
+
+
 def test_port_imports_no_jax(tmp_path):
-    """Importing every port module (``cli.train`` and the training
-    modules among them), and reading a JAX checkpoint whose optimizer
-    state pickles optax objects, loads no JAX module."""
+    """With JAX, Flax, optax, the JAX package and ``tools`` blocked:
+    importing every port module (``cli.train`` and the training modules
+    among them), reading a JAX checkpoint whose optimizer state pickles
+    optax objects, and running both of the port's tools
+    (``tools/convert_reference_checkpoint_torch.py`` on a reference-layout
+    WGAN-GP file, ``tools/xml_to_cam_params_torch.py`` on a camera XML)."""
     import optax
+    from chip_smoke import reference_layout
+    from genre_shapehd_tpu_torch import nn as tnn
     params = {"Dense_0": {"kernel": np.arange(6.0).reshape(2, 3),
                           "bias": np.zeros(3)}}
     ckpt = str(tmp_path / "adam.pt")
@@ -203,32 +212,102 @@ def test_port_imports_no_jax(tmp_path):
         "nets": [{"params": params, "batch_stats": {}}],
         "optimizers": [jax.tree.map(np.asarray, optax.adam(1e-3).init(
             params))], "epoch": 3, "loss_eval": 0.5})
+    src, dst = str(tmp_path / "wgangp_ref.pt"), str(tmp_path / "wgangp.pt")
+    torch.save({"nets": reference_layout("wgangp", {
+        "net_g": tnn.VoxelGenerator(8, 4, 128).state_dict(),
+        "net_d": tnn.VoxelDiscriminator(4, 128).state_dict()}),
+        "optimizers": [], "epoch": 1}, src)
+    xmls, cams = tmp_path / "xml", tmp_path / "cams"
+    _camera_xmls(xmls)
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, runpy, sys\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None        # import m: ModuleNotFoundError\n"
         "import genre_shapehd_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from genre_shapehd_tpu_torch.core.checkpoint import load_net\n"
+        "from genre_shapehd_tpu_torch.core.checkpoint import load_net, "
+        "load_checkpoint\n"
         f"params, stats = load_net({ckpt!r})\n"
         "assert params['Dense_0']['kernel'].shape == (2, 3), params\n"
-        "bad = sorted(m for m in sys.modules if m in "
-        "('jax', 'flax', 'optax', 'genre_shapehd_tpu') or "
-        "m.startswith('genre_shapehd_tpu.'))\n"
         "n = sum(m.startswith('genre_shapehd_tpu_torch.') "
         "for m in sys.modules)\n"
         "for m in ('viz.visualizer', 'viz.mcubes', 'cli.eval_chamfer', "
         "'ops.chamfer', 'ops.cuda.chamfer_kernel', "
         "'ops.cuda.subpixel_kernel', 'cli.train', 'train.loop', "
         "'train.state', 'train.loggers', 'data.synthetic', 'ops.voxel', "
-        "'models.marrnet1'):\n"
+        "'models.marrnet1', 'core.reference'):\n"
         "    assert 'genre_shapehd_tpu_torch.' + m in sys.modules, m\n"
+        f"for tool, argv in (('convert_reference_checkpoint_torch', "
+        f"['--src', {src!r}, '--net', 'wgangp', '--dst', {dst!r}]), "
+        f"('xml_to_cam_params_torch', ['--input_dir', {str(xmls)!r}, "
+        f"'--output_dir', {str(cams)!r}])):\n"
+        "    sys.argv = [tool] + argv\n"
+        "    try:\n"
+        "        runpy.run_path(f'tools/{tool}.py', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (tool, e.code)\n"
+        f"out = load_checkpoint({dst!r})\n"
+        "assert out['net_names'] == ['net_g', 'net_d'], out['net_names']\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None "
+        "and m.split('.')[0] in "
+        f"{BLOCKED!r})\n"
         "print(n, bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    assert "unread" not in res.stderr, res.stderr
     # every module: the scoring path's and the training path's too
-    assert int(res.stdout.split()[0]) >= 48, res.stdout
+    assert int(res.stdout.splitlines()[-1].split()[0]) >= 49, res.stdout
+    assert sorted(os.listdir(cams)) == ["cam_0.npy", "cam_1.npy",
+                                        "cam_2.npy"]
+
+
+def _camera_xmls(d):
+    """Three Mitsuba scene files with a perspective sensor's lookAt and
+    film (the layout tests/test_utils_aux.py reads)."""
+    os.makedirs(d)
+    for i, (origin, up, res) in enumerate((
+            ("1.5,0.8,1.0", "0,1,0", (480, 480)),
+            ("-0.4,1.9,0.7", "0,0,1", (640, 480)),
+            ("0.3,-1.2,-2.1", "0,1,0", (256, 320)))):
+        with open(os.path.join(d, f"cam_{i}.xml"), "w") as f:
+            f.write(f"""<scene><sensor type="perspective">
+      <transform name="toWorld">
+        <lookAt origin="{origin}" target="0,0,0" up="{up}"/>
+      </transform>
+      <film type="ldrfilm">
+        <integer name="width" value="{res[0]}"/>
+        <integer name="height" value="{res[1]}"/>
+      </film>
+    </sensor></scene>""")
+
+
+def test_xml_to_cam_params_writes_the_jax_tools_bytes(tmp_path):
+    """``tools/xml_to_cam_params_torch.py`` and the JAX package's
+    ``tools/xml_to_cam_params.py`` on three camera XMLs: the same files,
+    byte for byte."""
+    xmls = tmp_path / "xml"
+    _camera_xmls(xmls)
+    out = {}
+    for tool in ("xml_to_cam_params", "xml_to_cam_params_torch"):
+        out[tool] = tmp_path / tool
+        res = subprocess.run(
+            [sys.executable, f"tools/{tool}.py", "--input_dir", str(xmls),
+             "--output_dir", str(out[tool])], cwd=REPO,
+            capture_output=True, text=True, timeout=120,
+            env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert res.returncode == 0, res.stdout + res.stderr
+        assert "converted 3 xml files" in res.stdout, res.stdout
+    names = sorted(os.listdir(out["xml_to_cam_params"]))
+    assert names == ["cam_0.npy", "cam_1.npy", "cam_2.npy"]
+    assert sorted(os.listdir(out["xml_to_cam_params_torch"])) == names
+    for name in names:
+        want = (out["xml_to_cam_params"] / name).read_bytes()
+        assert (out["xml_to_cam_params_torch"] / name).read_bytes() == want
+        cam = np.load(out["xml_to_cam_params"] / name)
+        assert cam.dtype == np.float64 and np.isfinite(cam).all()
 
 
 def test_cli_cuda_without_a_card_raises(tmp_path):
