@@ -88,13 +88,14 @@ raising on failure:
     finite losses, K3's launches, which nets moved (the frozen ones bit
     for bit), step time, peak memory; ``cli.test --net marrnet`` and
     ``--net shapehd --marrnet1_file`` on phase 3's photos at batch 8 (K3
-    once / twice a batch, the .npz keys, the meshes); the ShapeHD
+    once / twice a batch, the .npz keys, the meshes at 0.9); the ShapeHD
     checkpoint's held-out score (K4 once an item); a torch.profiler pass
     over one WGAN-GP and one ShapeHD step.
  9. GenRe's ShapeNet training path: a ShapeNet-layout tree written from
     phase 7's scenes (two synsets, two views a model, 8-bit RGB, normal
     and silhouette PNGs, 16-bit depth PNGs, rows filtered as libpng
-    chooses, .npy, .npz, .mat, a view without voxels), then the command lines of scripts/train_marrnet1.sh,
+    chooses, .npy, .npz, .mat, a view without voxels, canonical ones
+    included), then the command lines of scripts/train_marrnet1.sh,
     train_inpaint.sh (again with --exact_render), train_full_genre.sh and
     finetune_genre_joint.sh (--resume -1 of stage 3), recorded from the
     scripts, through ``cli.train --dataset shapenet`` at 256² -> 128³,
@@ -149,6 +150,24 @@ raising on failure:
     K1, K2, K3 and K5 launched, and the weights at least 0.1 lr (mean
     |difference|) from the step resumed from the same file with its
     moments zeroed.  ``[refckpt]`` lines, with the phase's wall time.
+
+13. the ShapeHD workflow as its launch scripts run it: ``bash
+    scripts_torch/<script> <synset>`` in subprocesses, on phase 9's tree
+    at 256² -> 128³, bfloat16, batch 4, 4 steps and an eval batch each,
+    with --epoch, --epoch_batches, --eval_batches, --vis_batches_vali,
+    --vis_param_f (meshes at 0.9), --logdir, --data_root, --dtype and
+    --log_batch appended: train_marrnet2.sh beside train_wgangp.sh, then
+    finetune_shapehd.sh (MARRNET2 and GAN those runs' checkpoints,
+    W_GAN_LOSS its default) beside finetune_marrnet.sh (MARRNET1 phase
+    9's MarrNet-1, MARRNET2): each run's views (the view without canonical
+    voxels left out), finite losses, the run directory its suffix names,
+    K3's launches by shape (``[launches]``, the last line of a run),
+    step and data time, peak memory, which nets moved and the frozen
+    ones bit for bit; then test_shapehd.sh, test_marrnet.sh and
+    test_genre.sh at once on 8 of phase 3's photos (K3, and K1, K2 for
+    GenRe, at batch 1; the .npz and meshes), and ``tools/trainrun_artifact_torch.py
+    --steps 12`` (GenRe at full scale, a finite loss series).
+    ``[scripts]`` lines, with the phase's wall time.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Scratch files go to build/chip_smoke/ under the repository.
@@ -2177,12 +2196,13 @@ def phase_family(device, work, marrnet1_ckpt):
     runs["moved"] = moved
 
     # serving: cli.test on phase 3's photos.  The meshes are drawn at the
-    # solid-occupancy level 0.5: at the default 0.25 an 8-step net's noisy
-    # field gives 2 M triangles a mesh (about 230 MB of .obj each)
+    # occupancy level 0.9: at the default 0.25 an 8-step net's noisy field
+    # gives 2 M triangles a mesh (about 230 MB of .obj each), at 0.5 up to
+    # 0.8 M (about 50 s of this phase's wall on an H100 host)
     photos = os.path.join(work, "photos")
     vis_param = os.path.join(work, "vis_param.json")
     with open(vis_param, "w") as f:
-        json.dump({"voxel": {"isosurf_thres": 0.5}}, f)
+        json.dump({"voxel": {"isosurf_thres": 0.9}}, f)
     per_item = {"marrnet": ["00_rgb.png", "04_rgb.png", "05_pred_depth.png",
                             "06_pred_silhou.png", "07_pred_normal.png",
                             "12_pred_voxel.obj"]}
@@ -2223,7 +2243,7 @@ def phase_family(device, work, marrnet1_ckpt):
         runs[f"test_{net}"] = dict(seconds=seconds, launches=dict(
             sk.launches), mesh_tris=[min(tris), max(tris)])
         log(f"[family] cli.test --net {net}: 16 photos, 2 batches of 8, "
-            f"bf16, {seconds:.1f} s wall (set-up and meshes at iso 0.5 "
+            f"bf16, {seconds:.1f} s wall (set-up and meshes at iso 0.9 "
             f"included); K3 "
             f"launches {sk.launches['deconv_final']}; npz keys "
             f"{sorted(keys)}; {len(tris)} meshes parsed, {min(tris)} to "
@@ -2293,8 +2313,8 @@ def shapenet_tree_module():
 def write_tree(root):
     """Phase 7's procedural scenes (still in this process's memory) as a
     ShapeNet-layout tree: each synset's models with two views, one train
-    view of the first synset without voxels; PNG rows filtered as libpng
-    chooses.  Returns the seconds it took."""
+    view of the first synset without voxels, in its pose or canonical;
+    PNG rows filtered as libpng chooses.  Returns the seconds it took."""
     from genre_shapehd_tpu_torch.data import procedural
     from genre_shapehd_tpu_torch.models.base import default_opt
     t0 = time.perf_counter()
@@ -2311,7 +2331,8 @@ def write_tree(root):
                 items.append(dict(
                     item=f"{synset}/{model}/{model}_view{k % 2:03d}",
                     train=mode == "train", sample=ds._raw(i),
-                    missing=("voxel",) if no_voxel else ()))
+                    missing=("voxel", "voxel_canon") if no_voxel
+                    else ()))
                 i += 1
     shapenet_tree_module().write_shapenet_tree(root, items)
     return time.perf_counter() - t0
@@ -2508,7 +2529,11 @@ def phase_shapenet(work):
     runs["moved"] = moved
     runs["loader"] = loader_times(root, cls)
     runs["read_png"] = png_read_times(root, work)
-    for top in (logdir, logdir + "_exact", root):
+    # phase 13 trains on the tree and starts MarrNet from stage 1
+    runs["tree"] = root
+    runs["marrnet1"] = os.path.join(work, "marrnet1_shapenet.pt")
+    os.replace(ck(d1), runs["marrnet1"])
+    for top in (logdir, logdir + "_exact"):
         shutil.rmtree(top, ignore_errors=True)
     return runs
 
@@ -2581,6 +2606,298 @@ def png_read_times(root, work):
         f"encoding (0 none, 1 Sub as cv2 writes, adaptive as libpng "
         f"chooses, 4 Paeth): {json.dumps(out)}")
     return out
+
+
+#: phase 13: the steps of each training script's run, the photos of each
+#: test script's, and the steps of the training log
+SCRIPTS = dict(steps=4, photos=8, trainrun_steps=12)
+#: K3's shapes in phase 13 (``[launches]``' keys): MarrNet-2's decoder
+#: and the WGAN-GP generator at batch 4; at cli.test's batch 1, the
+#: decoder and GenRe's dec6
+K3_DEC, K3_GEN = "4x32x64x64x64", "4x64x64x64x64"
+K3_DEC1, K3_DEC6_1 = "1x32x64x64x64", "1x40x64x64x64"
+
+
+def start_script(script, args, env):
+    """``bash scripts_torch/<script> <args>`` as a user runs it, in a
+    process of its own with ``python`` this interpreter: (the process,
+    its start time)."""
+    bindir = os.path.join(ROOT, "build", "chip_smoke_bin")
+    os.makedirs(bindir, exist_ok=True)
+    shim = os.path.join(bindir, "python")
+    with open(shim, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(shim, 0o755)
+    proc = subprocess.Popen(
+        ["bash", os.path.join(ROOT, "scripts_torch", script)] + args,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        stdin=subprocess.DEVNULL,
+        env=dict(os.environ, **env,
+                 PATH=bindir + os.pathsep + os.environ["PATH"]))
+    return script, proc, time.perf_counter()
+
+
+def finish_script(started, timeout=600):
+    """Waits for a :func:`start_script` process: (its stdout, its stderr,
+    its wall seconds, its ``[launches]`` line as a dict).  Fails unless
+    it exits 0."""
+    script, proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{script} exited {proc.returncode}; stdout "
+          f"ends {out[-2000:]}; stderr ends {err[-3000:]}")
+    line = [ln for ln in out.splitlines() if ln.startswith("[launches] ")]
+    check(len(line) == 1, f"{script}: no [launches] line")
+    return out, err, seconds, json.loads(line[0][11:])
+
+
+def phase_scripts(work, tree, marrnet1_ckpt, genre_ckpt, photos):
+    """The ShapeHD workflow as ``scripts_torch/`` runs it, each script in
+    a subprocess: MarrNet-2 and WGAN-GP on phase 9's tree, ShapeHD on
+    both their checkpoints, MarrNet on phase 9's MarrNet-1 and MarrNet-2;
+    then the three test scripts on phase 3's photos and the training log
+    of ``tools/trainrun_artifact_torch.py``.  Returns each run's numbers
+    and launches."""
+    import torch
+    from genre_shapehd_tpu_torch.core.checkpoint import load_checkpoint
+    from genre_shapehd_tpu_torch.core.registry import get_model
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    from genre_shapehd_tpu_torch.train.state import adam_moments
+    t_phase = time.perf_counter()
+    cls, steps = SHAPENET["classes"][0], SCRIPTS["steps"]
+    logdir = os.path.join(work, "scripts")
+    vis_param = os.path.join(work, "vis_param_0.9.json")
+    with open(vis_param, "w") as f:
+        json.dump({"voxel": {"isosurf_thres": 0.9}}, f)
+    extra = ["--epoch", "1", "--epoch_batches", str(steps),
+             "--eval_batches", "1", "--vis_batches_vali", "1",
+             "--vis_param_f", vis_param, "--logdir", logdir, "--data_root",
+             tree, "--dtype", "bfloat16", "--log_batch"]
+    try:
+        import tensorboardX                                   # noqa: F401
+        tensorboard = True
+    except ImportError:
+        tensorboard = False
+    run = lambda net, lr, sfx="": os.path.join(              # noqa: E731
+        logdir, f"{net}_shapenet_{lr}_{cls}{sfx}", "0")
+    ck = lambda d: os.path.join(d, "checkpoint.pt")          # noqa: E731
+    dA, dB, dC, dD = (run("marrnet2", 0.001), run("wgangp", 0.0001),
+                      run("shapehd", 0.0001, "_w_ganloss0.001"),
+                      run("marrnet", 0.0001))
+    # every model reads the canonical voxels: the chair's train view
+    # without voxels is left out
+    n_tr, n_va = SHAPENET["train"][0] - 1, SHAPENET["vali"][0]
+    # (run, script, variables, run dir, a loss term, K3 by shape): a
+    # train step and the eval batch run MarrNet-2's decoder once, ShapeHD's
+    # eval twice (its frozen copy), WGAN-GP's step the generator twice
+    stages = (
+        ("marrnet2", "train_marrnet2.sh", {}, dA, "loss",
+         {K3_DEC: steps + 1}),
+        ("wgangp", "train_wgangp.sh", {}, dB, "err_d_gp",
+         {K3_GEN: 2 * steps + 1}),
+        ("shapehd", "finetune_shapehd.sh",
+         {"MARRNET2": ck(dA), "GAN": ck(dB)}, dC, "gan",
+         {K3_DEC: steps + 2}),
+        ("marrnet", "finetune_marrnet.sh",
+         {"MARRNET1": marrnet1_ckpt, "MARRNET2": ck(dA)}, dD, "loss",
+         {K3_DEC: steps + 1}))
+    # two runs at a time, each pair independent: marrnet2 beside wgangp,
+    # then shapehd beside marrnet (each of these reads marrnet2's
+    # checkpoint); their step and data times are taken beside the other
+    # run, and phase 8 has the family's alone
+    done = {}
+    for pair in (stages[:2], stages[2:]):
+        started = [start_script(script, [cls] + extra, env)
+                   for _, script, env, _, _, _ in pair]
+        try:
+            for stage, st in zip(pair, started):
+                done[stage[0]] = finish_script(st)
+        finally:
+            for _, proc, _ in started:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    runs = {}
+    for name, script, env, d, metric, k3 in stages:
+        out, err, seconds, rep = done[name]
+        beside = {"marrnet2": "wgangp", "wgangp": "marrnet2",
+                  "shapehd": "marrnet", "marrnet": "shapehd"}[name]
+        counts = f"[setup] {n_tr} train / {n_va} vali samples"
+        check(counts in out, f"{name}: {counts!r} not in its output")
+        check(os.path.isfile(ck(d)), f"{name}: no {ck(d)}")
+        if tensorboard:
+            check(bool(glob.glob(os.path.join(d, "tensorboard",
+                                              "events.out.*"))),
+                  f"{name}: no TensorBoard event file")
+        else:
+            check(f"{script}: tensorboardX is not installed; leaving out "
+                  "--tensorboard" in err.splitlines(),
+                  f"{name}: the script did not say it left out "
+                  f"--tensorboard: {err[-1000:]}")
+        launches = rep["launches"]
+        want = {k: 0 for k in launches}
+        want["deconv_final"] = sum(k3.values())
+        check(launches == want and rep["deconv_final_shapes"] == k3,
+              f"{name}: launches {rep}, want {want} at {k3}")
+        rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
+        check(len(rows) == steps, f"{name}: {len(rows)} logged steps")
+        terms = [k for k in rows[0] if k not in (
+            "epoch", "batch", "size", "batch_time", "data_time")]
+        check(metric in terms and all(np.isfinite(float(row[k]))
+                                      for row in rows for k in terms),
+              f"{name}: loss terms {terms} not all finite")
+        times = [float(row["batch_time"]) for row in rows]
+        data = [float(row["data_time"]) for row in rows]
+        runs[name] = dict(
+            step_ms=statistics.median(times[2:]) * 1e3,
+            data_ms=statistics.median(data[2:]) * 1e3,
+            peak_gib=rep["peak_gib"], seconds=seconds,
+            launches=launches, k3_shapes=rep["deconv_final_shapes"],
+            loss=[round(float(r["loss"]), 4) for r in rows])
+        log(f"[scripts] bash scripts_torch/{script} {cls} (+ {len(extra)} "
+            f"args): {n_tr} train / {n_va} vali views; {steps} steps of "
+            f"batch 4, bf16, beside {beside}'s run; loss "
+            f"{runs[name]['loss']}; step {runs[name]['step_ms']:.1f} ms, "
+            f"data {runs[name]['data_ms']:.1f} ms (medians of steps "
+            f"3..{steps}; first {times[0] * 1e3:.0f} ms); peak memory "
+            f"{rep['peak_gib']} GiB; {seconds:.1f} s wall (process "
+            f"start, set-up, checkpoint included); K3 by shape "
+            f"{rep['deconv_final_shapes']}; run directory "
+            f"{os.path.relpath(d, logdir)}")
+
+    def nets(d):
+        payload = load_checkpoint(ck(d))
+        return payload, {n: _flat_net(net) for n, net in
+                         zip(payload["net_names"], payload["nets"])}
+
+    def start(net, **kw):
+        model = get_model(net)(default_opt(device="cpu", **kw))
+        model.init_state(0)
+        return {n: {k: v for k, v in m.state_dict().items()
+                    if not k.endswith("num_batches_tracked")}
+                for n, m in model.net_modules().items()}
+
+    # which nets moved, and the hand-offs: ShapeHD's frozen copy and
+    # critic, MarrNet's MarrNet-1 bit for bit the checkpoints they came
+    # from (statistics included)
+    _, a = nets(dA)
+    payload, w = nets(dB)
+    check([adam_moments(o)[0] for o in payload["optimizers"]]
+          == [steps, steps], f"wgangp: Adam counts {payload['optimizers']}")
+    w_init = start("wgangp", canon_voxel=True)
+    moved = {"marrnet2": _max_change(a["net"], start(
+        "marrnet2", canon_sup=True)["net"], ""),
+        "wgangp": {n: _max_change(w[n], w_init[n], "")
+                   for n in ("net_g", "net_d")}}
+    _, c = nets(dC)
+    for key, want in (("net_noft", a["net"]), ("net_d", w["net_d"])):
+        for k, v in want.items():
+            check(torch.equal(c[key][k], v), f"shapehd changed {key}.{k}")
+    moved["shapehd"] = _max_change(c["net"], a["net"], "")
+    _, m = nets(dD)
+    for k, v in _net_state(marrnet1_ckpt).items():
+        check(torch.equal(m["net"]["marrnet1." + k], v),
+              f"marrnet changed marrnet1.{k}")
+    moved["marrnet"] = _max_change(
+        m["net"], {"marrnet2." + k: v for k, v in a["net"].items()},
+        "marrnet2.")
+    check(all(v > 0 for v in (moved["marrnet2"], moved["shapehd"],
+                              moved["marrnet"], *moved["wgangp"].values())),
+          f"moved {moved}")
+    log(f"[scripts] largest weight change: {json.dumps(moved)}; ShapeHD's "
+        f"net_noft and net_d equal to MARRNET2's and GAN's checkpoints, "
+        f"MarrNet's marrnet1 to MARRNET1's, bit for bit")
+    runs["moved"] = moved
+
+    # the test scripts on phase 3's photos, batch 1 (the scripts' own)
+    n = SCRIPTS["photos"]
+    pick = f"0[0-{n - 1}]"
+    env = {"RGB": os.path.join(photos, f"{pick}_rgb.png"),
+           "MASK": os.path.join(photos, f"{pick}_silhouette.png")}
+    out_dir = os.path.join(work, "test_scripts")
+    tests = (
+        ("test_shapehd.sh", "shapehd", {"NET_FILE": ck(dC),
+                                        "MARRNET1_FILE": marrnet1_ckpt},
+         {K3_DEC1: 2 * n}, {}, "11_pred_voxel_noft.obj"),
+        ("test_marrnet.sh", "marrnet", {"NET_FILE": ck(dD)},
+         {K3_DEC1: n}, {}, "12_pred_voxel.obj"),
+        ("test_genre.sh", "genre_full_model", {"NET_FILE": genre_ckpt},
+         {K3_DEC6_1: n}, {"render_stage1": n, "render_stage2_scan": n},
+         "pred_voxel.obj"))
+    # the three at once: each is its own process, and none is timed
+    t_tests = time.perf_counter()
+    started = [start_script(script, [
+        "--output_dir", out_dir, "--dtype", "bfloat16", "--vis_param_f",
+        vis_param], {**env, **var}) for script, _, var, _, _, _ in tests]
+    try:
+        done = [finish_script(st) for st in started]
+    finally:
+        for _, proc, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for (script, net, var, k3, render, mesh), (_, _, seconds, rep) in zip(
+            tests, done):
+        want = {k: render.get(k, 0) for k in rep["launches"]}
+        want["deconv_final"] = sum(k3.values())
+        check(rep["launches"] == want and rep["deconv_final_shapes"] == k3,
+              f"{script}: launches {rep}, want {want} at {k3}")
+        d = f"{out_dir}_{net}"            # --suffix '{net}'
+        npz = sorted(glob.glob(os.path.join(d, "batch*.npz")))
+        check(len(npz) == n, f"{script}: {len(npz)} .npz files in {d}")
+        for f in npz:
+            with np.load(f) as z:
+                check(z["pred_voxel"].shape == (1, 128, 128, 128)
+                      and bool(np.isfinite(z["pred_voxel"]).all()),
+                      f"{script}: {f} pred_voxel")
+        meshes = glob.glob(os.path.join(d, "batch*", f"*{mesh}"))
+        check(len(meshes) == n, f"{script}: {len(meshes)} *{mesh}")
+        runs[script] = dict(seconds=seconds, launches=rep["launches"],
+                            k3_shapes=rep["deconv_final_shapes"])
+        log(f"[scripts] bash scripts_torch/{script}: {n} photos at batch "
+            f"1, bf16, {seconds:.1f} s wall beside the other two (process "
+            f"start, meshes at 0.9 included); launches {rep['launches']}, "
+            f"K3 by shape {rep['deconv_final_shapes']}; {len(npz)} .npz, "
+            f"{len(meshes)} "
+            f"*{mesh}")
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[scripts] the three test scripts together: "
+        f"{time.perf_counter() - t_tests:.1f} s wall")
+
+    # the full-scale training log, as its tool writes it
+    md = os.path.join(work, "TRAINRUN_torch.md")
+    k = SCRIPTS["trainrun_steps"]
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools",
+                                      "trainrun_artifact_torch.py"),
+         "--steps", str(k), "--out", md], cwd=ROOT, capture_output=True,
+        text=True, timeout=600, stdin=subprocess.DEVNULL)
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"trainrun_artifact_torch.py exited "
+          f"{res.returncode}: {res.stderr[-3000:]}")
+    with open(md) as f:
+        text = f.read()
+    series = json.loads(text.split("```json\n")[1].split("\n```")[0])
+    check(len(series["losses"]) == k
+          and all(np.isfinite(series["losses"])), f"trainrun {series}")
+    check(torch.cuda.get_device_name(0) in text, "trainrun: no device name")
+    runs["trainrun"] = dict(seconds=seconds, **series)
+    log(f"[scripts] tools/trainrun_artifact_torch.py --steps {k}: GenRe, "
+        f"batch 4, 256^2 -> 128^3, bf16, synthetic; losses "
+        f"{series['losses']}; median step {series['step_time_median_s']} s "
+        f"(steps 3..{k}); {seconds:.1f} s wall")
+    for line in text.splitlines():
+        if line.startswith("- "):
+            log(f"[scripts] trainrun markdown: {line[2:]}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    runs["seconds"] = time.perf_counter() - t_phase
+    log(f"[scripts] phase 13: {runs['seconds']:.1f} s wall")
+    return runs
 
 
 def phase_exact_render(device, flush):
@@ -3419,6 +3736,14 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
 
+    # seconds since the start at the end of each phase
+    elapsed = {}
+
+    def mark(phase):
+        elapsed[phase] = round(time.perf_counter() - t_start, 1)
+        log(f"[time] {phase} done at {elapsed[phase]} s")
+
+    mark("build")
     errs, ms, plain_ms, library_ms, bounds = phase_kernels(device)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
     k3 = "deconv_final"
@@ -3437,29 +3762,44 @@ def main() -> int:
     del flush
     phase_edge_shapes(device)
     phase_render_grad(device)
+    mark("2 kernels")
     launches, ckpt, out_dir = phase_main_path(device, work)
     launches.update(phase_score(device, work, out_dir))
     phase_reference(device)
     fwd_ms, fwd32_ms = phase_throughput(device, ckpt)
     bwd_before, bwd_after = dec6_backward_ms(device)
+    mark("3-5 serving, scoring, throughput")
     log(f"[train] dec6 backward, batch 4, bf16, all three gradients: "
         f"{bwd_before:.3f} ms through the forward again and autograd.grad, "
         f"{bwd_after:.3f} ms by convolution_backward")
     runs, train_launches = phase_train(device, work)
     # K5 runs on the training path only: its launches are the joint run's
     launches[k5] = train_launches[k5]
+    mark("6 training")
     staged, marrnet1_ckpt = phase_staged(device, work)
     phase_train_profile(device, runs)
+    mark("7 staged")
     family = phase_family(device, work, marrnet1_ckpt)
     phase_family_profile(device, family)
+    mark("8 family")
     shapenet = phase_shapenet(work)
+    mark("9 shapenet")
+    tree, marrnet1_shapenet = shapenet.pop("tree"), shapenet.pop("marrnet1")
+    scripts = phase_scripts(work, tree, marrnet1_shapenet, ckpt,
+                            os.path.join(work, "photos"))
+    shutil.rmtree(tree, ignore_errors=True)
+    mark("13 scripts")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
     exact = phase_exact_render(device, flush)
     del flush
+    mark("9 exact renderer")
     dp = phase_dp(work)
+    mark("10 dp")
     sp = phase_sp(work, dp)
+    mark("11 sp")
     refckpt = phase_reference_checkpoints(device, work, ckpt,
                                           os.path.join(work, "photos"))
+    mark("12 reference checkpoints")
 
     kernels = []
     for name in ("render_stage1", "render_stage2_scan", k3, k4, k5):
@@ -3482,6 +3822,11 @@ def main() -> int:
             "launches_shapenet": sum(r["launches"].get(name, 0)
                                      for r in shapenet.values()
                                      if "launches" in r),
+            # phase 13: the launch scripts' subprocesses
+            "launches_scripts": sum(r["launches"].get(name, 0)
+                                    for r in scripts.values()
+                                    if isinstance(r, dict)
+                                    and "launches" in r),
             # rank 0's profiled step of each phase-10 run
             "launches_dp": {k: r["launches"].get(name, 0)
                             for k, r in dp.items()},
@@ -3504,7 +3849,10 @@ def main() -> int:
                                     MAIN["z"]])
     by_name[k3].update(hmma_in_sass=sum(hmma.values()),
                        marrnet_shapehd=family_k3, sp_slab=k3_slab,
-                       sp_slab_launches=sp["k3_spans"])
+                       sp_slab_launches=sp["k3_spans"],
+                       scripts_launches_by_shape={
+                           k: r["k3_shapes"] for k, r in scripts.items()
+                           if isinstance(r, dict) and "k3_shapes" in r})
     # the default command's type at the main path's shapes
     for name, row in f32_rows.items():
         by_name[name]["float32"] = row
@@ -3538,6 +3886,11 @@ def main() -> int:
         + "; ShapeNet tree (scripts' command lines) "
         + ", ".join(f"{k} {v['step_ms']:.1f} ms (data {v['data_ms']:.1f})"
                     for k, v in shapenet.items() if "step_ms" in v)
+        + "; ShapeHD workflow by scripts_torch/ (ShapeNet tree) "
+        + ", ".join(f"{k} {scripts[k]['step_ms']:.1f} ms (data "
+                    f"{scripts[k]['data_ms']:.1f})" for k in (
+                        "marrnet2", "wgangp", "shapehd", "marrnet"))
+        + f", phase 13 {scripts['seconds']:.1f} s"
         + "; exact renderer vs K1 + K2, batch 4: "
         + ", ".join(f"{k} {v['exact_ms']:.3f} vs {v['k1_k2_ms']:.3f} ms"
                     for k, v in exact.items())
@@ -3546,7 +3899,8 @@ def main() -> int:
         + f"; spatial parallel (dp 1 x sp 2, 2 gloo ranks on the card), "
         f"float32, batch 4: {sp['step_ms']:.1f} ms"
         + f"; reference checkpoints (phase 12) {refckpt['seconds']:.1f} s"
-        + f"; total {time.perf_counter() - t_start:.0f} s")
+        + f"; total {time.perf_counter() - t_start:.0f} s; seconds at "
+        f"each phase's end {json.dumps(elapsed)}")
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

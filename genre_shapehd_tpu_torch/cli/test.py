@@ -14,6 +14,8 @@ with ``_<--suffix>`` (formatted with the options) appended when one is
 given.  Writes one ``batch%04d.npz`` per batch (pred_voxel, pred_proj_depth,
 pred_proj_sph_full, rgb_path) and, under ``batch%04d/``, a copy of each
 photo and the iso-surface meshes (.obj) of the three voxel grids.
+Its last line, ``[launches] {...}``, gives the hand-written kernels'
+launches of the run (``ops/cuda/__init__.py::launch_line``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import sys
 from ..core.device import resolve_device
 from ..core.registry import get_dataset, get_model
 from ..data.loader import DataLoader
+from ..ops.cuda import launch_line
 from . import options
 
 
@@ -51,6 +54,7 @@ def main(argv=None) -> int:
         model.test_on_batch(i, batch)
         print(f"[test] batch {i + 1}/{len(loader)} done")
     model.visualizer.close()             # meshes and images are on disk
+    print(launch_line(model.device), flush=True)
     return 0
 
 

@@ -39,6 +39,9 @@ Rank 0 alone writes the logdir; its checkpoints have the format of a
 one-process run's.  Each rank ends with a line ``[dp] rank r of N:
 parameters and buffers sha1 <hex>[; peak device memory <x> GiB]; kernel
 launches {...}`` (the hand-written kernels' launch counts of its run).
+Rank 0's last line before it, ``[launches] {...}``, gives those counts
+with K3's by shape and the peak device memory
+(``ops/cuda/__init__.py::launch_line``).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.registry import get_dataset, get_model
 from ..data.loader import DataLoader
+from ..ops.cuda import launch_counts, launch_line
 from ..parallel import mesh
 from ..train.loggers import (BatchCsvLogger, ComposeLogger, CsvLogger,
                              ModelSaveLogger, ProgbarLogger,
@@ -198,17 +202,16 @@ def train(opt, unique_params) -> int:
     finally:
         if visualizer is not None:
             visualizer.close()      # waits; re-raises a drawing's failure
+    if lead:
+        print(launch_line(model.device), flush=True)
     if opt.multihost:
-        from ..ops.cuda import chamfer_kernel, render_kernel, subpixel_kernel
         peak = (f"; peak device memory "
                 f"{torch.cuda.max_memory_allocated(model.device) / 2**30:.3f}"
                 f" GiB" if model.device.type == "cuda" else "")
-        launches = {**render_kernel.launches, **subpixel_kernel.launches,
-                    **chamfer_kernel.launches}
         print(f"[dp] rank {mesh.rank()} of {mesh.world()}: parameters and "
               f"buffers sha1 "
               f"{mesh.state_digest(model.net_modules().values())}{peak}; "
-              f"kernel launches {json.dumps(launches)}", flush=True)
+              f"kernel launches {json.dumps(launch_counts())}", flush=True)
     return 0
 
 

@@ -1,5 +1,5 @@
 """Model / dataset registries (counterpart of
-``genre_shapehd_tpu/core/registry.py``); only what this package ports."""
+``genre_shapehd_tpu/core/registry.py``): the same aliases."""
 
 from __future__ import annotations
 
@@ -40,3 +40,11 @@ def get_dataset(alias: str) -> Type:
                        f"{sorted(_DATASET_MODULES)}")
     return getattr(importlib.import_module(_DATASET_MODULES[alias]),
                    "Dataset")
+
+
+def model_aliases():
+    return sorted(_MODEL_MODULES)
+
+
+def dataset_aliases():
+    return sorted(_DATASET_MODULES)

@@ -137,6 +137,24 @@ def binarize(im: np.ndarray, thres: float) -> np.ndarray:
                                else np.float64)
 
 
+def depth_to_mesh_df(depth_hw: np.ndarray, minmax, vox_res: int = 128,
+                     cam_dist: float = 2.2) -> np.ndarray:
+    """Host-side depth -> truncated distance field, (vox_res,)*3 float32:
+    ``depth_hw`` relative depth in [0, 1] with background 0, ``minmax``
+    the absolute (min, max) bounds; camera backprojection of the GenRe
+    camera on the CPU."""
+    from ..ops import FL_GENRE, camera_backproject, coords
+
+    depth = np.asarray(depth_hw, np.float32)
+    dmin, dmax = float(minmax[0]), float(minmax[1])
+    abs_depth = np.where(depth > 0,
+                         (1.0 - depth) * (dmax - dmin + 1e-4) + dmin,
+                         0.0).astype(np.float32)
+    d = coords.depth_image_to_cambp_frame(torch.from_numpy(abs_depth)[None])
+    tdf = camera_backproject(d, FL_GENRE, cam_dist, vox_res)
+    return tdf[0].numpy()
+
+
 def get_bbox(mask01: np.ndarray, th: float = 0.95):
     """[tl_w, tl_h, br_w, br_h] of mask > th."""
     m = mask01[..., 0] if mask01.ndim == 3 else mask01

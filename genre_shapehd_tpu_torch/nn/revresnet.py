@@ -9,6 +9,9 @@ output_padding=op)`` computes the same map with the taps flipped, which
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -67,3 +70,29 @@ class RevLayer(nn.Module):
         for i in range(self.blocks):
             x = getattr(self, f"RevBasicBlock_{i}")(x)
         return x
+
+
+class RevResNet18(nn.Module):
+    """The whole reverse ResNet-18: a latent (N, 8, 8, in_planes) ->
+    (N, 256, 256, out_planes), channel-last in and out as the JAX
+    module's.  Four stages of two blocks (strides 2, 2, 2, 1), then a
+    biased 3x3 deconv (stride 2) + bn + relu and a 7x7 deconv (stride 2)."""
+
+    def __init__(self, out_planes: int = 5,
+                 planes: Sequence[int] = (512, 256, 128, 64),
+                 in_planes: int = 512):
+        super().__init__()
+        cin = in_planes
+        for i, (width, stride) in enumerate(zip(planes, (2, 2, 2, 1))):
+            setattr(self, f"RevLayer_{i}", RevLayer(cin, width, stride))
+            cin = width
+        self.Deconv_0 = Deconv(cin, planes[3], 3, 2, 1, 1, use_bias=True)
+        self.BatchNorm_0 = batch_norm(planes[3])
+        self.Deconv_1 = Deconv(planes[3], out_planes, 7, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for i in range(4):
+            x = getattr(self, f"RevLayer_{i}")(x)
+        x = F.relu(self.BatchNorm_0(self.Deconv_0(x)))
+        return self.Deconv_1(x).permute(0, 2, 3, 1)

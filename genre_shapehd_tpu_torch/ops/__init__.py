@@ -5,7 +5,8 @@ Counterpart of ``genre_shapehd_tpu/ops``."""
 from .sph import gen_sph_grid, sph_pad, sph_pad_numpy
 from .stop_prob import stop_probability
 from .camera_bp import (camera_backproject, camera_backproject_shifted,
-                        get_surface_mask, shift_tdf, FL_GENRE, CAM_DIST)
+                        get_surface_mask, shift_tdf, FL_MARRNET, FL_GENRE,
+                        CAM_DIST)
 from .spherical_bp import spherical_backproject, backproject_spherical_masked
 from .render_sph_fast import render_spherical_fast
 from .grid_sample import grid_sample_3d
@@ -17,7 +18,7 @@ from . import coords, voxel
 __all__ = [
     "gen_sph_grid", "sph_pad", "sph_pad_numpy", "stop_probability",
     "camera_backproject", "camera_backproject_shifted", "get_surface_mask",
-    "shift_tdf", "FL_GENRE", "CAM_DIST",
+    "shift_tdf", "FL_MARRNET", "FL_GENRE", "CAM_DIST",
     "spherical_backproject", "backproject_spherical_masked",
     "render_spherical_fast", "grid_sample_3d", "render_spherical",
     "nndistance", "nndistance_w_idx",

@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+#: focal length (pixels, 256x256 crops) of the MarrNet family
+FL_MARRNET = 784.4645406
 #: focal length (pixels, 256x256 crops) of the GenRe pipeline
 FL_GENRE = 418.3
 #: camera distance from the object centre

@@ -54,6 +54,8 @@ SOURCE = "deconv_final_kernel.cu"
 
 #: launches of the kernel since the last :func:`reset_launches`
 launches: Dict[str, int] = {"deconv_final": 0}
+#: the launches on a cube by shape, (B, Cin, S)
+cube_launches: Dict[Tuple[int, ...], int] = {}
 #: the launches on a box or a Z slab (not on a cube) by shape, (B, Cin,
 #: X, Y, Z, z_lo, z_out)
 slab_launches: Dict[Tuple[int, ...], int] = {}
@@ -65,6 +67,7 @@ _lib = None
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    cube_launches.clear()
     slab_launches.clear()
 
 
@@ -194,6 +197,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
                                _DTYPE_CODE[x.dtype], bsz, cin, s,
                                ctypes.c_void_p(stream))
         launches["deconv_final"] += 1
+        cube_launches[(bsz, cin, s)] = cube_launches.get((bsz, cin, s), 0) + 1
     if err != 0:
         raise RuntimeError(f"deconv_final: CUDA error {err} at launch")
     return out

@@ -29,6 +29,14 @@ VOXEL_ISOSURF_TH = 0.25
 MAX_OBJ_TRIS = 2_000_000
 
 
+def to_obj_str(verts: np.ndarray, faces: np.ndarray) -> str:
+    """A Wavefront .obj as text: ``v x y z`` per vertex as Python prints
+    the numbers, then ``f i j k`` per face with 1-based indices."""
+    lines = ["v {} {} {}".format(*v) for v in verts]
+    lines += ["f {} {} {}".format(*(f + 1)) for f in faces]
+    return "\n".join(lines) + "\n"
+
+
 def save_iso_obj(df: np.ndarray, path: str, th: float,
                  shift: bool = True, max_tris: int = MAX_OBJ_TRIS) -> None:
     """Clamp the field so the iso level exists, extract at 1/res spacing,

@@ -1,7 +1,8 @@
 """Test data in the layouts the JAX package reads from disk, for the
 tests and ``chip_smoke.py`` alike (it imports nothing of JAX or of the
 JAX package): a ShapeNet-layout tree written from procedural scenes,
-and the command line of a ``scripts/*.sh`` training script."""
+and the command line of a ``scripts/*.sh`` or ``scripts_torch/*.sh``
+launch script."""
 
 import os
 import subprocess
@@ -85,25 +86,36 @@ def write_shapenet_tree(root, items):
 
 
 def script_argv(script, cls, env=None,
-                module="genre_shapehd_tpu.cli.train"):
-    """The arguments that ``scripts/<script> <cls>`` (no argument for a
-    ``cls`` of None) passes to ``python -m <module>``, verbatim: the
+                module="genre_shapehd_tpu.cli.train", scripts="scripts",
+                tensorboardx=True, with_stderr=False, extra=()):
+    """The arguments that ``<scripts>/<script> <cls> <extra...>`` (no
+    class for a ``cls`` of None) passes to ``python -m <module>``,
+    verbatim: the
     script runs with a stand-in ``python`` first on PATH that records
-    them (``env`` adds variables, e.g. NET1 or INPAINT)."""
+    them (``env`` adds variables, e.g. NET1 or INPAINT).  The stand-in
+    answers ``python -c ...`` (the port's scripts ask it whether
+    tensorboardX imports) with success if ``tensorboardx``, else with
+    failure.  ``scripts`` is the scripts' directory under the repository:
+    ``scripts`` (the JAX package's) or ``scripts_torch`` (the port's).
+    With ``with_stderr``, returns (the arguments, the script's stderr)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "argv")
         fake = os.path.join(d, "python")
         with open(fake, "w") as f:
-            f.write('#!/bin/sh\nfor a in "$@"; do printf \'%s\\0\' "$a"; '
+            f.write('#!/bin/sh\nif [ "$1" = -c ]; then exit $C_STATUS; fi\n'
+                    'for a in "$@"; do printf \'%s\\0\' "$a"; '
                     'done > "$ARGV_FILE"\n')
         os.chmod(fake, 0o755)
-        subprocess.run(
-            ["bash", os.path.join(repo, "scripts", script)]
-            + ([] if cls is None else [cls]),
-            check=True, env=dict(os.environ, **(env or {}), ARGV_FILE=out,
-                                 PATH=d + os.pathsep + os.environ["PATH"]))
+        res = subprocess.run(
+            ["bash", os.path.join(repo, scripts, script)]
+            + ([] if cls is None else [cls]) + list(extra),
+            check=True, stdin=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True,
+            env=dict(os.environ, **(env or {}), ARGV_FILE=out,
+                     C_STATUS="0" if tensorboardx else "1",
+                     PATH=d + os.pathsep + os.environ["PATH"]))
         with open(out) as f:
             argv = f.read().split("\0")[:-1]
     assert argv[:2] == ["-m", module], argv[:2]
-    return argv[2:]
+    return (argv[2:], res.stderr) if with_stderr else argv[2:]

@@ -199,9 +199,10 @@ def test_port_imports_no_jax(tmp_path):
     """With JAX, Flax, optax, the JAX package and ``tools`` blocked:
     importing every port module (``cli.train`` and the training modules
     among them), reading a JAX checkpoint whose optimizer state pickles
-    optax objects, and running both of the port's tools
+    optax objects, and running the port's tools
     (``tools/convert_reference_checkpoint_torch.py`` on a reference-layout
-    WGAN-GP file, ``tools/xml_to_cam_params_torch.py`` on a camera XML)."""
+    WGAN-GP file, ``tools/xml_to_cam_params_torch.py`` on a camera XML,
+    ``tools/trainrun_artifact_torch.py`` for two tiny steps on the CPU)."""
     import optax
     from chip_smoke import reference_layout
     from genre_shapehd_tpu_torch import nn as tnn
@@ -219,6 +220,7 @@ def test_port_imports_no_jax(tmp_path):
         "optimizers": [], "epoch": 1}, src)
     xmls, cams = tmp_path / "xml", tmp_path / "cams"
     _camera_xmls(xmls)
+    trainrun = str(tmp_path / "trainrun.md")
     code = (
         "import importlib, pkgutil, runpy, sys\n"
         f"for m in {BLOCKED!r}:\n"
@@ -241,7 +243,9 @@ def test_port_imports_no_jax(tmp_path):
         f"for tool, argv in (('convert_reference_checkpoint_torch', "
         f"['--src', {src!r}, '--net', 'wgangp', '--dst', {dst!r}]), "
         f"('xml_to_cam_params_torch', ['--input_dir', {str(xmls)!r}, "
-        f"'--output_dir', {str(cams)!r}])):\n"
+        f"'--output_dir', {str(cams)!r}]), ('trainrun_artifact_torch', "
+        f"['--steps', '2', '--batch', '2', '--tiny', '--device', 'cpu', "
+        f"'--out', {trainrun!r}])):\n"
         "    sys.argv = [tool] + argv\n"
         "    try:\n"
         "        runpy.run_path(f'tools/{tool}.py', run_name='__main__')\n"
@@ -249,13 +253,15 @@ def test_port_imports_no_jax(tmp_path):
         "        assert e.code == 0, (tool, e.code)\n"
         f"out = load_checkpoint({dst!r})\n"
         "assert out['net_names'] == ['net_g', 'net_d'], out['net_names']\n"
+        f"md = open({trainrun!r}).read()\n"
+        "assert 'Full-scale training run' in md and '\"losses\"' in md, md\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None "
         "and m.split('.')[0] in "
         f"{BLOCKED!r})\n"
         "print(n, bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "unread" not in res.stderr, res.stderr
     # every module: the scoring path's and the training path's too

@@ -1,12 +1,16 @@
-"""PyTorch port, GenRe's ShapeNet training path against the JAX package on
-the CPU: 16-bit PNG reading against cv2, the ``shapenet`` dataset on a
-ShapeNet-layout tree written from procedural scenes at 480² (8-bit RGB,
-normal and silhouette PNGs, 16-bit depth PNGs, ``.npy``, ``.npz``, a
-``.mat`` per model and an item without voxels), the class tables, the
-command lines of ``scripts/train_marrnet1.sh``, ``train_inpaint.sh``,
-``train_full_genre.sh`` and ``finetune_genre_joint.sh`` in both parsers,
-and those four command lines through ``cli.train --dataset shapenet
---device cpu`` at 64² -> 32³ on a smaller tree.
+"""PyTorch port, the ShapeNet training paths of GenRe and of the ShapeHD
+workflow against the JAX package on the CPU: 16-bit PNG reading against
+cv2, the ``shapenet`` dataset on a ShapeNet-layout tree written from
+procedural scenes at 480² (8-bit RGB, normal and silhouette PNGs, 16-bit
+depth PNGs, ``.npy``, ``.npz``, a ``.mat`` per model and an item without
+voxels, canonical ones included), each model's samples in train and vali
+mode, the class tables, the command lines of the eight training scripts
+(``scripts/train_marrnet1.sh``, ``train_inpaint.sh``,
+``train_full_genre.sh``, ``finetune_genre_joint.sh``,
+``train_marrnet2.sh``, ``train_wgangp.sh``, ``finetune_shapehd.sh``,
+``finetune_marrnet.sh``) in both parsers, and both chains of them
+through ``cli.train --dataset shapenet --device cpu`` at 64² -> 32³ on a
+smaller tree.
 """
 
 import glob
@@ -41,10 +45,11 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHAIR, CAR = "03001627", "02958343"
 #: (item, train, missing modalities): two classes, train and vali items,
-#: a model with two views (one .mat for both) and a view without voxels
+#: a model with two views (one .mat for both) and a view without voxels,
+#: neither in its pose nor canonical
 ITEMS = [
     (f"{CHAIR}/c0/c0_view000", True, ()),
-    (f"{CHAIR}/c0/c0_view001", True, ("voxel",)),
+    (f"{CHAIR}/c0/c0_view001", True, ("voxel", "voxel_canon")),
     (f"{CHAIR}/c1/c1_view000", True, ()),
     (f"{CAR}/k0/k0_view000", True, ()),
     (f"{CHAIR}/c2/c2_view000", False, ()),
@@ -53,7 +58,12 @@ ITEMS = [
     (f"{CAR}/k1/k1_view000", False, ()),
 ]
 SCRIPTS = ("train_marrnet1.sh", "train_inpaint.sh", "train_full_genre.sh",
-           "finetune_genre_joint.sh")
+           "finetune_genre_joint.sh", "train_marrnet2.sh", "train_wgangp.sh",
+           "finetune_shapehd.sh", "finetune_marrnet.sh")
+#: the variables the scripts read: checkpoints to start from and the
+#: weight of ShapeHD's adversarial loss (its suffix names it)
+SCRIPT_ENV = {"NET1": "n1.pt", "INPAINT": "inpaint.pt", "MARRNET1": "m1.pt",
+              "MARRNET2": "m2.pt", "GAN": "gan.pt", "W_GAN_LOSS": "1e-3"}
 
 
 def _write_tree(root, size, vox_res, sph_res):
@@ -239,25 +249,20 @@ def test_dataset_reads_what_jax_reads(tree, mode, classes, n):
         np.testing.assert_array_equal(got[i]["rgb"], ref[i]["rgb"])
 
 
-@pytest.mark.parametrize("net,flags", [
-    ("marrnet1", dict(pred_depth_minmax=True)),
-    ("depth_pred_with_sph_inpaint", {}),
-    ("genre_full_model", {}),
-    ("marrnet2", dict(canon_sup=True))])
-def test_dataset_vali_preprocess_matches_jax(tree, net, flags):
-    """Vali-mode samples through the models' ``preprocess`` (480² -> 256²
-    bicubic, 2.5D maps scaled by 100, silhouettes binarized, spherical
-    maps padded, voxels to the train frame): the same keys and float32
-    arrays, equal but for the resize, whose bicubic weights cv2 keeps in
-    float32 (1e-5 of [0, 1], as ``test_torch_port_cli.py`` holds it)."""
-    kw = dict(im_size=256, vox_res=32, sph_res=32, z_res=64, **flags)
-    jm = jax_model(net)(jax_opt(**kw))
-    tm = get_model(net)(default_opt(device="cpu", **kw))
-    assert sorted(tm.requires) == sorted(jm.requires)
-    ref, got = _both(tree, "vali", jm, tm, classes="chair")
-    assert len(got) == 3
+#: each model with its scripts' flags
+NETS = [("marrnet1", dict(pred_depth_minmax=True)),
+        ("depth_pred_with_sph_inpaint", {}), ("genre_full_model", {}),
+        ("marrnet2", dict(canon_sup=True)), ("wgangp", dict(canon_voxel=True)),
+        ("shapehd", dict(canon_sup=True)), ("marrnet", dict(canon_sup=True))]
+
+
+def _assert_samples_match(ref, got, n):
+    """Every sample of both datasets: the same keys and float32 arrays,
+    equal but for the resize, whose bicubic weights cv2 keeps in float32
+    (1e-5 of [0, 1], as ``test_torch_port_cli.py`` holds it)."""
+    assert len(got) == n
     tol = {"rgb": 1e-5 / 0.224, "depth": 1e-3, "normal": 1e-3}
-    for i in range(len(got)):
+    for i in range(n):
         r, g = ref[i], got[i]
         assert sorted(g) == sorted(r)
         for k, v in r.items():
@@ -271,6 +276,61 @@ def test_dataset_vali_preprocess_matches_jax(tree, net, flags):
                                            err_msg=k)
             else:
                 np.testing.assert_array_equal(g[k], v, err_msg=k)
+
+
+def _models(net, flags):
+    kw = dict(im_size=256, vox_res=32, sph_res=32, z_res=64, **flags)
+    jm = jax_model(net)(jax_opt(**kw))
+    tm = get_model(net)(default_opt(device="cpu", **kw))
+    assert sorted(tm.requires) == sorted(jm.requires)
+    return jm, tm
+
+
+@pytest.mark.parametrize("net,flags", NETS)
+def test_dataset_vali_preprocess_matches_jax(tree, net, flags):
+    """Vali-mode samples through the models' ``preprocess`` (480² -> 256²
+    bicubic, 2.5D maps scaled by 100, silhouettes binarized, spherical
+    maps padded, voxels to the train frame; WGAN-GP's canonical voxels as
+    they are read), from the same items in the same order."""
+    jm, tm = _models(net, flags)
+    ref, got = _both(tree, "vali", jm, tm, classes="chair")
+    _assert_samples_match(ref, got, 3)
+
+
+@pytest.mark.parametrize("net,flags", NETS[3:])
+def test_dataset_train_preprocess_matches_jax(tree, net, flags,
+                                              monkeypatch):
+    """Train-mode samples of the ShapeHD workflow's models, colour jitter
+    and lighting noise included: the JAX ``preprocess`` draws from an
+    unseeded generator, which the test seeds as the port's dataset seeds
+    the item's (``(--manual_seed, pass, index, train)``).  The chair's
+    view without voxels is left out by every model here, WGAN-GP's
+    canonical-voxel-only list included, as its status files say; the
+    views of the model whose canonical voxels exist stay."""
+    jm, tm = _models(net, flags)
+    ref, got = _both(tree, "train", jm, tm, classes="chair")
+    assert [os.path.basename(s["item"]) for s in got.samples] == [
+        "c0_view000", "c1_view000"]
+    real = np.random.default_rng
+
+    def seeded(i):
+        return lambda *a, **k: real(*a, **k) if a or k else real(
+            [0, 0, i, 1])
+
+    class _Indexed:
+        def __init__(self, ds):
+            self.ds = ds
+
+        def __len__(self):
+            return len(self.ds)
+
+        def __getitem__(self, i):
+            monkeypatch.setattr(np.random, "default_rng", seeded(i))
+            try:
+                return self.ds[i]
+            finally:
+                monkeypatch.setattr(np.random, "default_rng", real)
+    _assert_samples_match(_Indexed(ref), got, 2)
 
 
 def test_augmentation_draws_anew_each_loader_pass(tree):
@@ -306,8 +366,7 @@ def test_script_command_lines_parse_alike(script):
     among them; ``--suffix '{classes}'`` formats to the class.  A JAX
     flag that nothing reads (``--save_net_opt``) is an error in the
     port, not a silent no-op."""
-    env = {"NET1": "n1.pt", "INPAINT": "inpaint.pt"}
-    argv = script_argv(script, "chair", env)
+    argv = script_argv(script, "chair", SCRIPT_ENV)
     ref, got = _parse_both(argv)
     shared = sorted(set(ref) & set(got))
     assert [k for k in shared if ref[k] != got[k]] == []
@@ -315,7 +374,9 @@ def test_script_command_lines_parse_alike(script):
     assert set_by_script <= set(shared), set_by_script - set(shared)
     assert {"tensorboard", "classes", "suffix"} <= set_by_script
     assert got["dataset"] == "shapenet" and got["classes"] == "chair"
-    assert got["suffix"].format(**got) == "chair"
+    want = ("chair_w_ganloss0.001" if script == "finetune_shapehd.sh"
+            else "chair")
+    assert got["suffix"].format(**got) == ref["suffix"].format(**ref) == want
     assert got["device"] == "cuda"
     with pytest.raises(SystemExit):
         options.parse_train(argv + ["--save_net_opt"])
@@ -424,3 +485,110 @@ def test_scripts_train_on_a_shapenet_tree_through_cli_train(tmp_path):
                                       "*pred_depth.png"))
     finally:
         shutil.rmtree(logs, ignore_errors=True)
+
+
+def _nets(path):
+    """A checkpoint's nets by name, each as {state_dict key: tensor}."""
+    from genre_shapehd_tpu_torch.core.checkpoint import load_checkpoint
+    from genre_shapehd_tpu_torch.core.convert import jax_to_torch
+    payload = load_checkpoint(path)
+    return {name: {k: v for k, v in jax_to_torch(
+        net["params"], net.get("batch_stats") or {}).items()
+        if not k.endswith("num_batches_tracked")}
+        for name, net in zip(payload["net_names"], payload["nets"])}
+
+
+def _csv_rows(path):
+    import csv
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def _moved(after, before):
+    """The largest weight change (statistics excluded)."""
+    return max(float((after[k] - v).abs().max()) for k, v in before.items()
+               if "running_" not in k)
+
+
+def test_shapehd_scripts_chain_on_a_shapenet_tree_through_cli_train(
+        tmp_path):
+    """The ShapeHD workflow's four scripts' command lines, verbatim but
+    for smaller epochs, ``--logdir``, the tree's ``--data_root``, the
+    small sizes and ``--device cpu``, through ``cli.train`` in a fresh
+    process (which loads no JAX module): MarrNet-2, WGAN-GP, ShapeHD on
+    both their checkpoints (``MARRNET2``, ``GAN``, ``W_GAN_LOSS``; its run
+    directory named by the suffix), MarrNet on a seeded MarrNet-1's
+    checkpoint and MarrNet-2's (``MARRNET1``, ``MARRNET2``).  Every model
+    leaves out the view without canonical voxels; every loss is finite;
+    ShapeHD's frozen copy and critic are the checkpoints' bit for bit
+    and its net moved from MarrNet-2's; MarrNet's MarrNet-1 is the
+    checkpoint's bit for bit and its MarrNet-2 moved."""
+    from genre_shapehd_tpu_torch.train.loop import Trainer
+    root = str(tmp_path / "shapenet")
+    _write_tree(root, 128, 32, 32)
+    logs = str(tmp_path / "logs")
+    dims = ["--im_size", "64", "--vox_res", "32", "--sph_res", "32",
+            "--z_res", "64"]
+    small = ["--epoch", "1", "--epoch_batches", "2", "--eval_batches", "1",
+             "--batch_size", "2", "--workers", "2", "--vis_batches_vali",
+             "1", "--vis_workers", "0", "--data_root", root, "--device",
+             "cpu", "--manual_seed", "1", "--logdir", logs, "--log_batch"
+             ] + dims
+    m1 = str(tmp_path / "marrnet1.pt")
+    opt = default_opt(device="cpu", im_size=64, pred_depth_minmax=True)
+    trainer = Trainer(get_model("marrnet1")(opt), opt)
+    trainer.initialize(5)
+    trainer.save(m1, 0)
+    run = lambda net, lr, sfx="": os.path.join(              # noqa: E731
+        logs, f"{net}_shapenet_{lr}_{CHAIR}{sfx}", "0")
+    dA, dB, dC, dD = (run("marrnet2", 0.001), run("wgangp", 0.0001),
+                      run("shapehd", 0.0001, "_w_ganloss0.001"),
+                      run("marrnet", 0.0001))
+    ck = lambda d: os.path.join(d, "checkpoint.pt")          # noqa: E731
+    stages = [
+        _stage_argv("train_marrnet2.sh", {}, small),
+        _stage_argv("train_wgangp.sh", {}, small),
+        _stage_argv("finetune_shapehd.sh", {
+            "MARRNET2": ck(dA), "GAN": ck(dB)}, small),
+        _stage_argv("finetune_marrnet.sh", {
+            "MARRNET1": m1, "MARRNET2": ck(dA)}, small)]
+    assert stages[2][stages[2].index("--w_gan_loss") + 1] == "0.001"
+    code = (
+        "import json, sys\n"
+        "from genre_shapehd_tpu_torch.cli import train\n"
+        "for argv in json.loads(sys.argv[1]):\n"
+        "    assert train.main(argv) == 0\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
+        "'optax', 'genre_shapehd_tpu') or m.startswith('genre_shapehd_tpu.'))"
+        "\nprint('jax modules:', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    try:
+        res = subprocess.run(
+            [sys.executable, "-c", code, json.dumps(stages)], cwd=REPO,
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, OMP_NUM_THREADS="2"))
+        assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+        views = [ln.split(";")[0] for ln in res.stdout.splitlines()
+                 if ln.startswith("[setup] ") and "vali samples" in ln]
+        assert views == ["[setup] 2 train / 3 vali samples"] * 4, views
+        for d, metric in ((dA, "loss"), (dB, "err_d_gp"), (dC, "gan"),
+                          (dD, "loss")):
+            rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
+            assert len(rows) == 2 and metric in rows[0]
+            terms = [k for k in rows[0] if k not in ("epoch", "batch",
+                                                     "size")]
+            assert all(np.isfinite(float(r[k])) for r in rows
+                       for k in terms), rows
+        a, b, c, m = (_nets(ck(d)) for d in (dA, dB, dC, dD))
+        for name, want in (("net_noft", a["net"]), ("net_d", b["net_d"])):
+            assert c[name].keys() == want.keys()
+            for k, v in want.items():
+                assert torch.equal(c[name][k], v), f"shapehd {name}.{k}"
+        assert _moved(c["net"], a["net"]) > 0
+        for k, v in _nets(m1)["net"].items():
+            assert torch.equal(m["net"]["marrnet1." + k], v), k
+        assert _moved(m["net"], {"marrnet2." + k: v
+                                 for k, v in a["net"].items()}) > 0
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+
