@@ -106,8 +106,9 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> Set[str]:
              "runs on every sp rank)")
     add("--profile_step", type=int, default=0,
         help="run train step N (counted from 1 in this run) under "
-             "torch.profiler on rank 0 and write its kernels and "
-             "all-reduce times to <logdir>/profile_step.json; 0: none")
+             "torch.profiler on rank 0 and write its kernels, "
+             "all-reduce times and each stage's forward and backward "
+             "spans to <logdir>/profile_step.json; 0: none")
     return unique_params
 
 

@@ -10,7 +10,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from ..parallel.mesh import shard_slice
+from ..parallel import mesh
 
 
 def collate(samples: List[Dict]) -> Dict:
@@ -56,7 +56,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.epoch = 0
         self.num_shards = num_shards
-        self.shard = shard_slice(batch_size, num_shards, shard_id)
+        self.shard = mesh.shard_slice(batch_size, num_shards, shard_id)
 
     def __len__(self):
         n = len(self.dataset)

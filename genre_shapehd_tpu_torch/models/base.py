@@ -22,7 +22,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..core.checkpoint import load_checkpoint
 from ..core.convert import jax_to_torch
@@ -30,6 +29,7 @@ from ..core.device import resolve_device
 from ..data import preprocess as pp
 from ..nn import init_weights
 from ..parallel import mesh
+from ..utils import trace
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -200,22 +200,24 @@ class ModelBase:
     def train_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """One step on ``batch`` (numpy or device tensors): forward, loss,
         backward, Adam.  Returns the loss terms as device scalars."""
-        if not isinstance(next(iter(batch.values())), torch.Tensor):
-            batch = self.device_batch(batch)
-        self.net.train()
-        self.optimizer.zero_grad(set_to_none=False)
-        pred = self.forward_batch(batch)
-        with record_function("genre.loss"):
-            loss, loss_data = self.compute_loss(pred, batch)
-        with record_function("genre.backward"):
-            loss.backward()
-        mesh.all_reduce_grads((p for g in self.optimizer.param_groups
-                               for p in g["params"]), self.slab_params())
-        with record_function("genre.optimizer"):
-            self.optimizer.step()
-        self.step += 1
-        return mesh.all_reduce_metrics(
-            {k: v.detach() for k, v in loss_data.items()})
+        with trace.span(trace.TRAIN_STEP):
+            if not isinstance(next(iter(batch.values())), torch.Tensor):
+                batch = self.device_batch(batch)
+            self.net.train()
+            with trace.span(trace.ZERO_GRAD):
+                self.optimizer.zero_grad(set_to_none=False)
+            pred = self.forward_batch(batch)
+            with trace.span(trace.LOSS):
+                loss, loss_data = self.compute_loss(pred, batch)
+            with trace.span(trace.BACKWARD):
+                loss.backward()
+            mesh.all_reduce_grads((p for g in self.optimizer.param_groups
+                                   for p in g["params"]), self.slab_params())
+            with trace.span(trace.OPTIMIZER):
+                self.optimizer.step()
+            self.step += 1
+            return mesh.all_reduce_metrics(
+                {k: v.detach() for k, v in loss_data.items()})
 
     def eval_step(self, batch: Dict):
         """(loss terms, predictions) in eval mode, without gradients."""

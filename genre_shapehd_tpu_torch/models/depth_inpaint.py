@@ -8,9 +8,11 @@
       --wrap/replicate pad--> net2 (inpainting U-ResNet) --> full map
 
 The nets run in the compute dtype; the geometry between them in float32.
-Each stage runs under a ``torch.profiler.record_function`` span named
-``genre.<stage>`` (no cost unless a profiler is recording), which
-``chip_smoke.py`` reads for its per-stage device times.
+Each stage runs as a stage of ``utils/trace.py``: under a span named
+``genre.<stage>`` and, while a profiler records a training step, with its
+backward under ``genre.<stage>.backward`` (no cost unless a profiler is
+recording); ``bench_port/metrics/`` reads them for the per-stage device
+times.
 
 Training: without ``joint_train`` net1 runs in eval mode and without a
 gradient (the JAX package's ``train=train and joint_train`` and its
@@ -31,10 +33,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from .. import ops
 from ..nn import UResNet
+from ..utils import trace
 from .base import as_numpy, net_autocast, to_abs_depth
 from .marrnet1 import Model as DepthModel
 
@@ -89,39 +91,48 @@ class DepthInpaintNet(nn.Module):
         """rgb (N, H, W, 3), silhou (N, H, W, 1) in [0, 100]; the oracle
         inputs as the dataset gives them: spherical_depth (N, R, R, 1),
         gt_depth (N, H, W, 1) in [0, 100], gt_minmax (N, 2)."""
-        with record_function("genre.net1"), \
-                net_autocast(rgb.device, self.dtype), torch.set_grad_enabled(
-                    torch.is_grad_enabled() and self.joint_train):
-            out1 = self.net1(rgb)
+        out1 = trace.stage(trace.NET1, self._net1, rgb)
         if self.gt_depth_input and gt_depth is not None:
             out1["depth"] = gt_depth.detach()
             out1["depth_minmax"] = gt_minmax.detach()
         elif self.gt_minmax_input and gt_minmax is not None:
             out1["depth_minmax"] = gt_minmax.detach()
-        with record_function("genre.camera_bp"):
-            abs_depth = self.get_abs_depth(out1, silhou)
-            proj = ops.camera_backproject_shifted(
-                abs_depth, ops.FL_GENRE, ops.CAM_DIST, self.vox_res)
-        with record_function("genre.render"):
-            if self.load_offline and spherical_depth is not None:
-                sph_in = spherical_depth[..., 0]
-            else:
-                clipped = torch.clamp(proj * 50.0, 1e-5, 1.0 - 1e-5)
-                if self.exact_render:
-                    sph_in = ops.render_spherical(clipped, self.sph_res,
-                                                  self.z_res)
-                else:
-                    sph_in = ops.render_spherical_fast(
-                        clipped, self.sph_res, self.z_res,
-                        compute_dtype=self.dtype)
-        with record_function("genre.net2"), \
-                net_autocast(rgb.device, self.dtype):
-            sph_in = ops.sph_pad(sph_in[..., None], self.padding_margin)
-            out2 = self.net2(sph_in.to(self.dtype))
+        proj = trace.stage(trace.CAMERA_BP, self._camera_bp, out1, silhou)
+        sph_in = trace.stage(trace.RENDER, self._render, proj,
+                             spherical_depth)
+        sph_in, sph_full = trace.stage(trace.NET2, self._net2, sph_in)
         out1["proj_depth"] = proj * 50.0
         out1["pred_sph_partial"] = sph_in
-        out1["pred_sph_full"] = out2["spherical"]
+        out1["pred_sph_full"] = sph_full
         return out1
+
+    def _net1(self, rgb: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with net_autocast(rgb.device, self.dtype), torch.set_grad_enabled(
+                torch.is_grad_enabled() and self.joint_train):
+            return self.net1(rgb)
+
+    def _camera_bp(self, out1: Dict[str, torch.Tensor],
+                   silhou: torch.Tensor) -> torch.Tensor:
+        abs_depth = self.get_abs_depth(out1, silhou)
+        return ops.camera_backproject_shifted(
+            abs_depth, ops.FL_GENRE, ops.CAM_DIST, self.vox_res)
+
+    def _render(self, proj: torch.Tensor,
+                spherical_depth: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.load_offline and spherical_depth is not None:
+            return spherical_depth[..., 0]
+        clipped = torch.clamp(proj * 50.0, 1e-5, 1.0 - 1e-5)
+        if self.exact_render:
+            return ops.render_spherical(clipped, self.sph_res, self.z_res)
+        return ops.render_spherical_fast(clipped, self.sph_res, self.z_res,
+                                         compute_dtype=self.dtype)
+
+    def _net2(self, sph_in: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The padded partial map and net2's full map."""
+        with net_autocast(sph_in.device, self.dtype):
+            sph_in = ops.sph_pad(sph_in[..., None], self.padding_margin)
+            return sph_in, self.net2(sph_in.to(self.dtype))["spherical"]
 
 
 class Model(DepthModel):

@@ -26,11 +26,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from .. import ops
 from ..nn import UNet3D, init_weights
 from ..parallel import mesh
+from ..utils import trace
 from .base import ModelBase, as_numpy, bce_with_logits, net_autocast
 from .depth_inpaint import DepthInpaintNet, Model as DepthInpaintModel
 from .test_base import TestMixin
@@ -70,24 +70,30 @@ class GenreNet(nn.Module):
         if self.gt_sph_full and gt_sph is not None:
             # padded by the model's preprocess, as net2's output is
             out1["pred_sph_full"] = gt_sph.detach()
-        with record_function("genre.spherical_bp"):
-            pred_proj_sph = ops.backproject_spherical_masked(
-                out1["pred_sph_full"][..., 0].float(), self.padding_margin,
-                self.vox_res)
-        with record_function("genre.refine"), \
-                net_autocast(rgb.device, self.dtype):
-            proj_depth = torch.clamp(out1["proj_depth"] / 50.0, 1e-5,
-                                     1.0 - 1e-5)
-            refine_in = torch.stack([pred_proj_sph, proj_depth], dim=-1)
-            sharded = mesh.size(mesh.SP) > 1
-            if sharded:
-                refine_in = mesh.z_slab(refine_in, 3, grad="gather")
-            pred_voxel = self.refine_net(refine_in.to(self.dtype),
-                                         sharded=sharded)
+        pred_proj_sph = trace.stage(trace.SPHERICAL_BP, self._spherical_bp,
+                                    out1["pred_sph_full"])
+        proj_depth, pred_voxel = trace.stage(
+            trace.REFINE, self._refine, pred_proj_sph, out1["proj_depth"])
         out1["pred_proj_depth"] = proj_depth
         out1["pred_voxel"] = pred_voxel
         out1["pred_proj_sph_full"] = pred_proj_sph
         return out1
+
+    def _spherical_bp(self, sph_full: torch.Tensor) -> torch.Tensor:
+        return ops.backproject_spherical_masked(
+            sph_full[..., 0].float(), self.padding_margin, self.vox_res)
+
+    def _refine(self, pred_proj_sph: torch.Tensor, proj_depth: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The clipped projected depth and the voxel logits."""
+        with net_autocast(pred_proj_sph.device, self.dtype):
+            proj_depth = torch.clamp(proj_depth / 50.0, 1e-5, 1.0 - 1e-5)
+            refine_in = torch.stack([pred_proj_sph, proj_depth], dim=-1)
+            sharded = mesh.size(mesh.SP) > 1
+            if sharded:
+                refine_in = mesh.z_slab(refine_in, 3, grad="gather")
+            return proj_depth, self.refine_net(refine_in.to(self.dtype),
+                                               sharded=sharded)
 
 
 class Model(DepthInpaintModel):
@@ -179,10 +185,11 @@ class Model(DepthInpaintModel):
 
     def predict_step(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:
-        rgb = torch.as_tensor(batch["rgb"], dtype=torch.float32,
-                              device=self.device)
-        silhou = torch.as_tensor(batch["silhou"], dtype=torch.float32,
-                                 device=self.device)
+        with trace.span(trace.GENRE_UPLOAD):
+            rgb = torch.as_tensor(batch["rgb"], dtype=torch.float32,
+                                  device=self.device)
+            silhou = torch.as_tensor(batch["silhou"], dtype=torch.float32,
+                                     device=self.device)
         self.net.eval()
         with torch.inference_mode():
             pred = self.net(rgb, silhou)

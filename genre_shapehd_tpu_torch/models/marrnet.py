@@ -18,10 +18,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..data import preprocess as pp
 from ..nn import UResNet
+from ..utils import trace
 from .base import ModelBase, as_numpy, bce_with_logits, net_autocast
 from .marrnet2 import Marrnet2Net, Model as Marrnet2Model
 from .test_base import TestMixin
@@ -49,11 +49,10 @@ class MarrnetNet(nn.Module):
         return self
 
     def forward(self, rgb: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with record_function("marrnet.marrnet1"), torch.no_grad():
-            pred = self.marrnet1(rgb)
-        with record_function("marrnet.marrnet2"):
-            vox = self.marrnet2(pred["depth"], pred["normal"],
-                                pred["silhou"])
+        with torch.no_grad():
+            pred = trace.stage(trace.MARRNET1, self.marrnet1, rgb)
+        vox = trace.stage(trace.MARRNET2, self.marrnet2, pred["depth"],
+                          pred["normal"], pred["silhou"])
         return {**pred, "voxel": vox}
 
 
@@ -116,8 +115,9 @@ class Model(Marrnet2Model):
 
     def predict_step(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:
-        rgb = torch.as_tensor(batch["rgb"], dtype=torch.float32,
-                              device=self.device)
+        with trace.span(trace.MARRNET_UPLOAD):
+            rgb = torch.as_tensor(batch["rgb"], dtype=torch.float32,
+                                  device=self.device)
         self.net.eval()
         with torch.inference_mode():
             return self.forward_batch({"rgb": rgb})

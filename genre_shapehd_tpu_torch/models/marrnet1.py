@@ -14,11 +14,11 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..core.checkpoint import load_checkpoint
 from ..core.convert import jax_to_torch
 from ..nn import UResNet
+from ..utils import trace
 from .base import ModelBase, as_numpy, masked_mse, net_autocast
 
 #: weight of the depth min/max term
@@ -87,9 +87,10 @@ class Model(ModelBase):
 
     def forward_batch(self, batch: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
-        rgb = batch["rgb"]
-        with record_function("genre.net1"), \
-                net_autocast(rgb.device, self.dtype):
+        return trace.stage(trace.NET1, self._net1, batch["rgb"])
+
+    def _net1(self, rgb: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with net_autocast(rgb.device, self.dtype):
             return self.net(rgb)
 
     def compute_loss(self, pred: Dict[str, torch.Tensor],

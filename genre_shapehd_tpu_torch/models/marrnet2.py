@@ -14,9 +14,9 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..nn import ResNet18Encoder, VoxelDecoder
+from ..utils import trace
 from .base import ModelBase, as_numpy, bce_with_logits, net_autocast
 
 
@@ -72,11 +72,14 @@ class Model(ModelBase):
 
     def forward_batch(self, batch: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
-        depth = batch["depth"]
-        with record_function("marrnet.marrnet2"), \
-                net_autocast(depth.device, self.dtype):
-            return {"voxel": self.net(depth, batch["normal"],
-                                      batch["silhou"])}
+        return {"voxel": trace.stage(trace.MARRNET2, self._marrnet2,
+                                     batch["depth"], batch["normal"],
+                                     batch["silhou"])}
+
+    def _marrnet2(self, depth: torch.Tensor, normal: torch.Tensor,
+                  silhou: torch.Tensor) -> torch.Tensor:
+        with net_autocast(depth.device, self.dtype):
+            return self.net(depth, normal, silhou)
 
     def compute_loss(self, pred, batch) -> Tuple[torch.Tensor, Dict]:
         loss = bce_with_logits(pred["voxel"].float(), batch[self.voxel_key])

@@ -19,11 +19,11 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.checkpoint import load_checkpoint
 from ..core.convert import jax_to_torch
 from ..nn import VoxelDiscriminator, init_weights
+from ..utils import trace
 from .base import ModelBase, as_numpy, bce_with_logits, net_autocast
 from .marrnet import marrnet1_net, pack_2d
 from .marrnet2 import Model as Marrnet2Model
@@ -80,8 +80,10 @@ class Model(Marrnet2Model):
         self.net_d.to(self.device)
 
     def critic(self, voxel_logits: torch.Tensor) -> torch.Tensor:
-        with record_function("shapehd.critic"), \
-                net_autocast(voxel_logits.device, self.dtype):
+        return trace.stage(trace.CRITIC, self._critic, voxel_logits)
+
+    def _critic(self, voxel_logits: torch.Tensor) -> torch.Tensor:
+        with net_autocast(voxel_logits.device, self.dtype):
             return self.net_d(torch.sigmoid(voxel_logits.float()))
 
     def forward_batch(self, batch: Dict[str, torch.Tensor]
@@ -90,7 +92,7 @@ class Model(Marrnet2Model):
         pred["is_real"] = self.critic(pred["voxel"])
         if not self.net.training:
             args = (batch["depth"], batch["normal"], batch["silhou"])
-            with record_function("shapehd.net_noft"), torch.no_grad(), \
+            with trace.span(trace.NET_NOFT), torch.no_grad(), \
                     net_autocast(args[0].device, self.dtype):
                 pred["voxel_noft"] = self.net_noft(*args)
             with torch.no_grad():
@@ -135,11 +137,12 @@ class ModelTest(TestMixin, Model):
 
     def predict_step(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:
-        rgb = torch.as_tensor(batch["rgb"], dtype=torch.float32,
-                              device=self.device)
+        with trace.span(trace.SHAPEHD_UPLOAD):
+            rgb = torch.as_tensor(batch["rgb"], dtype=torch.float32,
+                                  device=self.device)
         self.net.eval()
         with torch.inference_mode():
-            with record_function("marrnet.marrnet1"), \
+            with trace.span(trace.MARRNET1), \
                     net_autocast(rgb.device, self.dtype):
                 pred1 = self.marrnet1(rgb)
             pred2 = self.forward_batch(pred1)

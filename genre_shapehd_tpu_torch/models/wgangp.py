@@ -35,10 +35,10 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..nn import VoxelDiscriminator, VoxelGenerator, init_weights
 from ..parallel import mesh
+from ..utils import trace
 from .base import ModelBase, as_numpy, keep_batch_stats, net_autocast
 
 
@@ -141,7 +141,7 @@ class Model(ModelBase):
         self.net_g.train()
         self.net_d.train()
 
-        with record_function("wgangp.d_phase"):
+        with trace.span(trace.WGANGP_D):
             with torch.no_grad():
                 fake = self.generate(z1).float()
             self.opt_d.zero_grad(set_to_none=False)
@@ -165,7 +165,7 @@ class Model(ModelBase):
             # D's parameters take no gradient in G's phase
             self.net_d.requires_grad_(False)
             try:
-                with record_function("wgangp.g_phase"):
+                with trace.span(trace.WGANGP_G):
                     self.opt_g.zero_grad(set_to_none=False)
                     err_g = self.critic(self.generate(z2)).mean()
                     (-err_g).backward()

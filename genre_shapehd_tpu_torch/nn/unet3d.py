@@ -3,7 +3,11 @@
 (128 -> 64 -> 32 -> 16 -> 8 -> 4 -> 1), skip concatenation, a linear
 bottleneck, BatchNorm + LeakyReLU(0.01) conv blocks.
 
-Input (N, X, Y, Z, 2), output (N, X, Y, Z) logits; NCDHW inside.
+Input (N, X, Y, Z, 2), output (N, X, Y, Z) logits; NCDHW inside.  The
+encoder (the stem down to the 1³ bottleneck and its Dense) and the
+decoder (the transposed convolutions to the logits, dec6 on K3) run as
+the stages ``genre.refine.encoder`` and ``genre.refine.decoder`` of
+``utils/trace.py``.
 
 **Sharded forward** (``sharded=True``; ``cli.train --sp``, where the
 JAX package shards the input's Z axis over the mesh's ``sp`` axis and
@@ -38,12 +42,14 @@ whole volume.
 from __future__ import annotations
 
 import math
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import mesh
+from ..utils import trace
 from .resnet import batch_norm
 from .voxel_nets import Conv3D, Deconv3D
 
@@ -94,6 +100,15 @@ class UNet3D(nn.Module):
             raise ValueError(f"--sp {mesh.size(mesh.SP)}: the sharded 3D "
                              "U-Net splits its 4³ level, so sp divides 4")
         h = x.permute(0, 4, 1, 2, 3)
+        h, *encs = trace.stage(trace.REFINE_ENCODER, self._encode, h,
+                               sharded)
+        return trace.stage(trace.REFINE_DECODER, self._decode, h, encs,
+                           sharded)
+
+    def _encode(self, h: torch.Tensor, sharded: bool
+                ) -> Tuple[torch.Tensor, ...]:
+        """The stem down to the 1³ bottleneck: the bottleneck's output
+        (N, C, 1, 1, 1) and every encoder level's, shallowest first."""
         encs = []
         for i in range(self.n_enc):
             slab = sharded and i < self.n_enc - 1
@@ -105,7 +120,12 @@ class UNet3D(nn.Module):
             encs.append(h)
         assert h.shape[2:] == (1, 1, 1), h.shape
         flat = F.leaky_relu(self.Dense_0(h.flatten(1)), 0.01)
-        h = flat.reshape(h.shape[0], self.width, 1, 1, 1)
+        return (flat.reshape(h.shape[0], self.width, 1, 1, 1), *encs)
+
+    def _decode(self, h: torch.Tensor, encs: List[torch.Tensor],
+                sharded: bool) -> torch.Tensor:
+        """The transposed convolutions from the bottleneck to the logits,
+        with the encoder's levels as skips (dec6 on K3)."""
         bn = self.n_enc
         for i in range(self.n_dec):
             slab = sharded and i > 0

@@ -65,16 +65,12 @@ from typing import Dict, Iterable, List
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+
+from ..utils import trace
 
 #: seconds a collective waits for the other ranks before it raises, so a
 #: rank that died fails the others instead of hanging them
 TIMEOUT_S = 600
-#: the profiler span of the gradients' all-reduce
-GRAD_SPAN = "dp.all_reduce_grads"
-#: the profiler spans of the Z halos and of the Z gathers
-HALO_SPAN = "sp.halo"
-GATHER_SPAN = "sp.gather"
 #: the groups a collective runs over
 DP, SP, WORLD = "dp", "sp", "world"
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -242,7 +238,7 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter],
         return
     slab = {id(p) for p in slab_params}
     params = [p for p in params if p.requires_grad and p.grad is not None]
-    with record_function(GRAD_SPAN):
+    with trace.span(trace.GRAD_ALL_REDUCE):
         for group in _flat_groups([p.grad for p in params]):
             flat = torch.cat([g.reshape(-1) for g in group])
             dist.all_reduce(flat)
@@ -321,7 +317,7 @@ class _Halo(torch.autograd.Function):
     def forward(ctx, x, lo, hi, align):
         s, n, zs = index(SP), size(SP), x.shape[-1]
         ctx.lo, ctx.hi, ctx.zs = lo, hi, zs
-        with record_function(HALO_SPAN):
+        with trace.span(trace.SP_HALO):
             buf = x.new_zeros(x.shape[:-1] + (n, lo + hi))
             buf[..., s, :lo] = x[..., zs - lo:]
             buf[..., s, lo:] = x[..., :hi]
@@ -337,7 +333,7 @@ class _Halo(torch.autograd.Function):
     def backward(ctx, grad):
         lo, hi, zs = ctx.lo, ctx.hi, ctx.zs
         s, n = index(SP), size(SP)
-        with record_function(HALO_SPAN):
+        with trace.span(trace.SP_HALO):
             # the align planes after the halo belong to no rank
             gx = grad[..., lo:lo + zs].clone()
             buf = grad.new_zeros(grad.shape[:-1] + (n, lo + hi))
@@ -378,7 +374,7 @@ class _GatherZ(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, grad_mode):
         ctx.dim, ctx.mode, ctx.zs = dim, grad_mode, x.shape[dim]
-        with record_function(GATHER_SPAN):
+        with trace.span(trace.SP_GATHER):
             buf = _planes(x, dim, x.shape[dim] * size(SP))
             buf.narrow(dim, index(SP) * ctx.zs, ctx.zs).copy_(x)
             return _exchange(buf)
@@ -386,7 +382,7 @@ class _GatherZ(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         if ctx.mode == "sum":
-            with record_function(GATHER_SPAN):
+            with trace.span(trace.SP_GATHER):
                 grad = _exchange(grad.clone())
         return (grad.narrow(ctx.dim, index(SP) * ctx.zs, ctx.zs)
                 .contiguous(), None, None)
@@ -416,7 +412,7 @@ class _ZSlab(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         zs = grad.shape[ctx.dim]
-        with record_function(GATHER_SPAN) if ctx.mode == "gather" \
+        with trace.span(trace.SP_GATHER) if ctx.mode == "gather" \
                 else contextlib.nullcontext():
             full = _planes(grad, ctx.dim, ctx.z)
             full.narrow(ctx.dim, index(SP) * zs, zs).copy_(grad)

@@ -17,7 +17,8 @@ every rank, and a batch counts as the global batch.  ``initialize`` gives
 every rank rank 0's weights.  With ``opt.profile_step`` N, rank 0 runs
 its N-th train step under ``torch.profiler`` and writes the step's
 kernels, all-reduce times, the spans of ``--sp`` (``sp.halo``,
-``sp.gather``) and K3's launches by shape to
+``sp.gather``), each model stage's forward and backward spans
+(``utils/trace.py``) and K3's launches by shape to
 ``<full_logdir>/profile_step.json``.
 """
 
@@ -38,6 +39,7 @@ from ..core.checkpoint import load_checkpoint, resume_path, save_checkpoint
 from ..data.loader import InfiniteLoader
 from ..ops.cuda import subpixel_kernel
 from ..parallel import mesh
+from ..utils import trace
 from .loggers import ComposeLogger, LogCumulator
 from .state import reference_payload_to_state, state_to_reference_payload
 
@@ -221,7 +223,10 @@ def profile_step(model, dev_batch) -> Tuple[Dict, Dict]:
     its device kernels by name (launches and device ms), the gradients'
     all-reduce (the CPU side of its span, and the device time of NCCL's
     kernels), the spans of the Z halos and gathers (calls and CPU ms
-    each) and K3's launches on a box or a Z slab by shape, ``BxCinxXxYxZ
+    each), each model stage's span and its backward span that ran (calls,
+    CPU ms, and the device ms of what was launched inside it; backward
+    spans in one process only, ``utils/trace.py``) and K3's
+    launches on a box or a Z slab by shape, ``BxCinxXxYxZ
     z<z_lo>+<z_out>``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -242,11 +247,11 @@ def profile_step(model, dev_batch) -> Tuple[Dict, Dict]:
                        "device_ms": e.self_device_time_total / 1e3}
                for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)}
-    span = [e for e in events if e.key == mesh.GRAD_SPAN
+    span = [e for e in events if e.key == trace.GRAD_ALL_REDUCE
             and e.device_type == DeviceType.CPU]
     spans = {e.key: {"calls": e.count, "cpu_ms": e.cpu_time_total / 1e3}
              for e in events if e.device_type == DeviceType.CPU
-             and e.key in (mesh.HALO_SPAN, mesh.GATHER_SPAN)}
+             and e.key in (trace.SP_HALO, trace.SP_GATHER)}
     k3_slabs = {
         "{}x{}x{}x{}x{} z{}+{}".format(*k): n - shapes.get(k, 0)
         for k, n in subpixel_kernel.slab_launches.items()
@@ -263,4 +268,29 @@ def profile_step(model, dev_batch) -> Tuple[Dict, Dict]:
             "cpu_ms": sum(e.cpu_time_total for e in span) / 1e3,
             "nccl_device_ms": sum(v["device_ms"] for k, v in kernels.items()
                                   if "nccl" in k.lower())},
-        "spans": spans, "k3_slabs": k3_slabs, "kernels": kernels}
+        "spans": spans, "stages": _stage_spans(prof.events()),
+        "k3_slabs": k3_slabs, "kernels": kernels}
+
+
+def _stage_spans(events) -> Dict[str, Dict]:
+    """Each stage span (``utils/trace.py``) and its backward span among
+    the profile's events: calls, CPU ms, and device ms of the operations
+    whose runtime call lies inside it, on whichever thread (autograd's
+    for a backward)."""
+    from torch.autograd import DeviceType
+    names = {n for s in trace.STAGES
+             for n in (s, s + trace.BACKWARD_SUFFIX)}
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges: Dict[str, list] = {}
+    for e in cpu:
+        if e.name in names:
+            ranges.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    launches = [(e.time_range.start, sum(k.duration for k in e.kernels))
+                for e in cpu if e.kernels]
+    return {name: {
+        "calls": len(rs),
+        "cpu_ms": sum(b - a for a, b in rs) / 1e3,
+        "device_ms": sum(us for t, us in launches
+                         if any(a <= t <= b for a, b in rs)) / 1e3}
+        for name, rs in sorted(ranges.items())}

@@ -43,6 +43,7 @@ from genre_shapehd_tpu_torch.nn import UNet3D
 from genre_shapehd_tpu_torch.nn.voxel_nets import (Conv3D, Deconv3D,
                                                    conv_halo, deconv_halo)
 from genre_shapehd_tpu_torch.parallel import mesh
+from genre_shapehd_tpu_torch.utils import trace
 
 import _torch_port_dist_cases as C
 from _torch_port_util import (calibrate, exact_flax_variance, jax_step,
@@ -497,8 +498,8 @@ def test_cli_train_sp2_on_two_cpu_ranks(tmp_path):
         # forward and backward: a halo a slab layer (stem, 2 levels, 3
         # deconvs); the 4³ gather and its sum, the logits' gather, the
         # cut's gradient
-        assert prof["spans"][mesh.HALO_SPAN]["calls"] == 12, prof["spans"]
-        assert prof["spans"][mesh.GATHER_SPAN]["calls"] == 4, prof["spans"]
+        assert prof["spans"][trace.SP_HALO]["calls"] == 12, prof["spans"]
+        assert prof["spans"][trace.SP_GATHER]["calls"] == 4, prof["spans"]
         assert os.path.isfile(os.path.join(run, "1", "epoch0001_vali",
                                            "batch0000.npz"))
         assert len(_csv(os.path.join(
