@@ -19,11 +19,15 @@ raising on failure:
     plane at each end, padded to 40 planes, bfloat16 and float32, beside
     its plain version and ``F.conv_transpose3d``) and
     the Chamfer kernel K4 (8 x 8192 points, a ragged pair and the eval
-    protocol's 1 x 1024), plus float32 checks at smaller sizes with TF32
-    off; K1 and K5 also against ``F.grid_sample``, which computes each in
-    one call; K1 on the float32 volume against the volume cast to bf16
-    (bit for bit), and one kernel per timed K1, K2, K3 and K5 call
-    (torch.profiler; K3 in float32 and K4 too); K1, K2, K3 and K5 at
+    protocol's 1 x 1024), the critic's first layer K6 (the ShapeHD
+    cell's 128 x 1 x 128³ float32 -> bfloat16, within one bf16 rounding
+    of the float64 result and two steps of its plain version under
+    autocast, beside bf16 ``F.conv3d`` and ``F.leaky_relu``), plus
+    float32 checks at smaller sizes with TF32 off; K1 and K5 also
+    against ``F.grid_sample``, which computes each in one call; K1 on
+    the float32 volume against the volume cast to bf16 (bit for bit),
+    and one kernel per timed K1, K2, K3 and K5 call (torch.profiler; K3
+    in float32 and K4 too); K1, K2, K3 and K5 at
     edge shapes (V = 34; odd S, S = 1, S > 64, Cin < 16, Cin > 288; V =
     33, S = 98, groups across a batch boundary; K3 also on boxes and Z
     slabs, from position 0 or 1, TMA and plain-load staging), K4 on
@@ -85,12 +89,14 @@ raising on failure:
     8 steps each: marrnet2 --canon_sup, wgangp --canon_voxel (and with
     --gan_d_iter 2), shapehd --canon_sup --marrnet2 --gan --w_gan_loss
     1e-3, marrnet --canon_sup --marrnet1 <phase 7's stage 1> --marrnet2:
-    finite losses, K3's launches, which nets moved (the frozen ones bit
-    for bit), step time, peak memory; ``cli.test --net marrnet`` and
-    ``--net shapehd --marrnet1_file`` on phase 3's photos at batch 8 (K3
-    once / twice a batch, the .npz keys, the meshes at 0.9); the ShapeHD
-    checkpoint's held-out score (K4 once an item); a torch.profiler pass
-    over one WGAN-GP and one ShapeHD step.
+    finite losses, K3's and K6's launches (K6 twice ShapeHD's eval
+    batch, never in a step), which nets moved (the frozen ones bit for
+    bit), step time, peak memory; ``cli.test --net marrnet`` and ``--net
+    shapehd --marrnet1_file`` on phase 3's photos at batch 8 (K3 once /
+    twice a batch, K6 twice a ShapeHD batch: the kernels line's K6
+    launches, the .npz keys, the meshes at 0.9); the ShapeHD checkpoint's
+    held-out score (K4 once an item, K6 twice a batch); a torch.profiler
+    pass over one WGAN-GP and one ShapeHD step.
  9. GenRe's ShapeNet training path: a ShapeNet-layout tree written from
     phase 7's scenes (two synsets, two views a model, 8-bit RGB, normal
     and silhouette PNGs, 16-bit depth PNGs, rows filtered as libpng
@@ -144,8 +150,8 @@ raising on failure:
     genre_full_model`` and ``--net shapehd --marrnet1_file`` on 8 of
     phase 3's photos, bf16, from the converted files and from the port's
     own checkpoints of the same weights: the ``.npz`` bit for bit under
-    deterministic algorithms, K1, K2, K3 once a GenRe forward, K3 twice a
-    ShapeHD one; ``cli.train --joint_train --resume -1`` from the
+    deterministic algorithms, K1, K2, K3 once a GenRe forward, K3 and K6
+    twice a ShapeHD one; ``cli.train --joint_train --resume -1`` from the
     converted GenRe file for one step: a finite loss, Adam's count 2 -> 3,
     K1, K2, K3 and K5 launched, and the weights at least 0.1 lr (mean
     |difference|) from the step resumed from the same file with its
@@ -161,7 +167,8 @@ raising on failure:
     W_GAN_LOSS its default) beside finetune_marrnet.sh (MARRNET1 phase
     9's MarrNet-1, MARRNET2): each run's views (the view without canonical
     voxels left out), finite losses, the run directory its suffix names,
-    K3's launches by shape (``[launches]``, the last line of a run),
+    K3's launches by shape and K6's (``[launches]``, the last line of a
+    run; K6 twice ShapeHD's eval batch and twice a ShapeHD test photo),
     step and data time, peak memory, which nets moved and the frozen
     ones bit for bit; then test_shapehd.sh, test_marrnet.sh and
     test_genre.sh at once on 8 of phase 3's photos (K3, and K1, K2 for
@@ -206,6 +213,7 @@ SOURCES = {
     "deconv_final": "genre_shapehd_tpu_torch/csrc/deconv_final_kernel.cu",
     "nn_min_dist": "genre_shapehd_tpu_torch/csrc/chamfer_kernel.cu",
     "render_stage2_samples": "genre_shapehd_tpu_torch/csrc/render_kernel.cu",
+    "critic_stem": "genre_shapehd_tpu_torch/csrc/critic_stem_kernel.cu",
 }
 #: the one PyTorch call that computes each kernel's function (library_ms)
 LIBRARY = {
@@ -214,6 +222,7 @@ LIBRARY = {
     "deconv_final": "F.conv_transpose3d",
     "nn_min_dist": "torch.cdist, then min",
     "render_stage2_samples": "F.grid_sample, float32 c",
+    "critic_stem": "F.conv3d, then F.leaky_relu, bf16",
 }
 REPLACES = {
     "render_stage1": "genre_shapehd_tpu/ops/pallas/render_kernel.py:170 "
@@ -228,6 +237,9 @@ REPLACES = {
     "render_stage2_samples": "genre_shapehd_tpu/ops/pallas/render_kernel.py"
                              ":312 (_s2_kernel via _s2_call :366, "
                              "pallas_call :373)",
+    "critic_stem": "none: the JAX package leaves the critic's first layer "
+                   "(genre_shapehd_tpu/nn/voxel_nets.py:466, "
+                   "VoxelDiscriminator) to XLA",
 }
 
 
@@ -680,6 +692,89 @@ def phase_deconv_final(device, flush):
     bnd = bound(x.numel() * 2 + cin * 64 * 4 + 4 + n_out * 2,
                 2.0 * 8 * cin * n_out, H100_BF16_FLOPS)
     return err, ms, plain_ms, library_ms, bnd
+
+
+def critic_stem_row(device, b, seed):
+    """K6 at the critic's (b, 1, 128³) on float32 probabilities in (0,
+    1), as autocast hands them to it, against ``critic_stem_plain`` under
+    bf16 autocast (the cast, cuDNN's convolution, ``F.leaky_relu``) and
+    against the float64 result on the bf16-rounded inputs, item groups of
+    8 at a time, at ``tests/test_torch_port_cuda.py``'s bounds: within one
+    bf16 rounding (2^-8 relative) of the float64 result and two steps
+    (2^-6) of the plain version, with room for the order of 64 float32
+    terms.  Returns the max and mean abs error against the plain version,
+    the kernel's call, the plain version's, the one library call of the
+    function (``F.conv3d`` and ``F.leaky_relu`` on bf16 v and weight) and
+    the bound: v read once in float32, the weight, the bf16 output."""
+    import torch
+    import torch.nn.functional as F
+    from genre_shapehd_tpu_torch.ops.cuda import critic_stem_kernel as cst
+    r, bf = 128, torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(seed)
+    v = torch.rand((b, 1, r, r, r), generator=g, device=device)
+    w = torch.randn((64, 1, 4, 4, 4), generator=g, device=device) * 0.1
+    vb, wb = v.to(bf), w.to(bf)
+
+    def plain():
+        with torch.autocast("cuda", dtype=bf):
+            return cst.critic_stem_plain(v, w)
+
+    with torch.inference_mode():
+        cst.reset_launches()
+        out = cst.critic_stem(v, w)
+        torch.cuda.synchronize()
+        check(cst.launches == {"critic_stem": 1} and out.dtype == bf
+              and out.shape == (b, 64, r // 2, r // 2, r // 2)
+              and out.is_contiguous(),
+              f"K6: launches {cst.launches}, {out.dtype} {out.shape}")
+        ref = plain()
+        d = (out.float() - ref.float()).abs()
+        err = (float(d.max()), float(d.mean()))
+        del d
+        worst = [-1.0, -1.0]
+        for i in range(0, b, 8):
+            v64, w64 = vb[i:i + 8].double(), wb.double()
+            exact = F.leaky_relu(F.conv3d(v64, w64, None, 2, 1), 0.2)
+            slack = 64 * 2.0 ** -24 * F.conv3d(v64.abs(), w64.abs(), None,
+                                               2, 1)
+            got, pl = out[i:i + 8].double(), ref[i:i + 8].double()
+            e = (got - exact).abs() - (2.0 ** -8 * exact.abs() + slack)
+            worst[0] = max(worst[0], float(e.max()))
+            e = (got - pl).abs() - (2.0 ** -6 * torch.maximum(
+                got.abs(), pl.abs()) + 2 * slack)
+            worst[1] = max(worst[1], float(e.max()))
+            del exact, slack, got, pl, e
+        check(worst[0] <= 0 and worst[1] <= 0,
+              f"K6 at {(b, 1, r, r, r)}: beyond its bound by {worst[0]} vs "
+              f"float64, {worst[1]} vs plain")
+        del out, ref
+    n_out = b * 64 * (r // 2) ** 3
+    return dict(
+        shape=[b, 1, r, r, r], max_abs_err=err[0], mean_abs_err=err[1],
+        call=lambda: cst.critic_stem(v, w), plain=plain,
+        library=lambda: F.leaky_relu(F.conv3d(vb, wb, None, 2, 1), 0.2),
+        bound=bound(v.numel() * 4 + 64 * 64 * 4 + n_out * 2,
+                    2.0 * 64 * n_out, H100_BF16_FLOPS))
+
+
+def phase_critic_stem(device, flush):
+    """K6 at the ShapeHD cell's (128, 1, 128³) (:func:`critic_stem_row`),
+    timed beside its plain version, the library call and its bound, with
+    no gradient recorded."""
+    import torch
+    row = critic_stem_row(device, 128, 17)
+    with torch.inference_mode():
+        ms = {key: time_ms(row.pop(fn), flush) for fn, key in (
+            ("call", "ms"), ("plain", "plain_ms"), ("library", "library_ms"))}
+    bnd = row.pop("bound")
+    log(f"[kernels] K6 critic_stem {row['shape']} float32 -> bf16: "
+        f"{ms['ms']:.4f} ms, bound {bnd[0] * 1e3:.1f} us ({bnd[1]}), "
+        f"{100 * bnd[0] / ms['ms']:.1f} % of it; plain (autocast's cast, "
+        f"cuDNN, F.leaky_relu) {ms['plain_ms']:.4f} ms; library (bf16 "
+        f"F.conv3d, F.leaky_relu) {ms['library_ms']:.4f} ms; max/mean abs "
+        f"err vs plain {row['max_abs_err']:.3g}/{row['mean_abs_err']:.3g}")
+    return ((row["max_abs_err"], row["mean_abs_err"]), ms["ms"],
+            ms["plain_ms"], ms["library_ms"], bnd)
 
 
 def _cdist_min(x1, x2):
@@ -2068,6 +2163,7 @@ def phase_family(device, work, marrnet1_ckpt):
     from genre_shapehd_tpu_torch.data.loader import DataLoader
     from genre_shapehd_tpu_torch.models.base import default_opt
     from genre_shapehd_tpu_torch.ops.cuda import chamfer_kernel as ck
+    from genre_shapehd_tpu_torch.ops.cuda import critic_stem_kernel as cst
     from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
     from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
     from genre_shapehd_tpu_torch.train.loop import Trainer
@@ -2091,38 +2187,43 @@ def phase_family(device, work, marrnet1_ckpt):
     # K3 a train step and an eval batch: MarrNet-2's decoder once; G once
     # in D's phase and once in its own (every step, or every second one),
     # and once an eval batch; ShapeHD's net once a step and, with the
-    # frozen copy, twice an eval batch
+    # frozen copy, twice an eval batch.  K6 twice ShapeHD's eval batch (its
+    # critic on both grids, no gradient); WGAN-GP's critic records a
+    # gradient in a step and reads bf16 G(z) in the eval batch, so it keeps
+    # nn.Conv3d
     runs_spec = (
         ("marrnet2", ["--net", "marrnet2", "--canon_sup", "--lr", "1e-3"],
-         dA, "loss", steps + 1),
+         dA, "loss", steps + 1, 0),
         ("wgangp", ["--net", "wgangp", "--canon_voxel", "--lr", "1e-4"],
-         dB, "err_d_gp", 2 * steps + 1),
+         dB, "err_d_gp", 2 * steps + 1, 0),
         ("wgangp_d_iter2", ["--net", "wgangp", "--canon_voxel",
                             "--gan_d_iter", "2", "--lr", "1e-4",
                             "--expr_id", "1"], dB2, "err_d_gp",
-         steps + steps // 2 + 1),
+         steps + steps // 2 + 1, 0),
         ("shapehd", ["--net", "shapehd", "--canon_sup", "--marrnet2", ckA,
                      "--gan", ckB, "--w_gan_loss", "1e-3", "--lr", "1e-4"],
-         dC, "gan", steps + 2),
+         dC, "gan", steps + 2, 2),
         ("marrnet", ["--net", "marrnet", "--canon_sup", "--marrnet1",
                      marrnet1_ckpt, "--marrnet2", ckA, "--lr", "1e-4"],
-         dD, "loss", steps + 1))
+         dD, "loss", steps + 1, 0))
     runs = {}
-    for name, extra, d, metric, k3 in runs_spec:
+    for name, extra, d, metric, k3, k6 in runs_spec:
         rk.reset_launches()
         sk.reset_launches()
         ck.reset_launches()
+        cst.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated() / 2 ** 30
         t0 = time.perf_counter()
         rc = cli_train.main(extra + base)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {**rk.launches, **sk.launches, **ck.launches}
+        launches = {**rk.launches, **sk.launches, **ck.launches,
+                    **cst.launches}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         check(rc == 0, f"cli.train {name} returned {rc}")
         want = {k: 0 for k in launches}
-        want["deconv_final"] = k3
+        want.update(deconv_final=k3, critic_stem=k6)
         check(launches == want, f"{name}: launches {launches} != {want}")
         rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
         check(len(rows) == steps, f"{name}: {len(rows)} logged steps")
@@ -2207,12 +2308,14 @@ def phase_family(device, work, marrnet1_ckpt):
                             "06_pred_silhou.png", "07_pred_normal.png",
                             "12_pred_voxel.obj"]}
     per_item["shapehd"] = per_item["marrnet"] + ["11_pred_voxel_noft.obj"]
-    for net, ckpt, extra, k3 in (
-            ("marrnet", os.path.join(dD, "checkpoint.pt"), [], 1),
+    # (net, checkpoint, flags, K3 and K6 launches a batch)
+    for net, ckpt, extra, k3, k6 in (
+            ("marrnet", os.path.join(dD, "checkpoint.pt"), [], 1, 0),
             ("shapehd", os.path.join(dC, "checkpoint.pt"),
-             ["--marrnet1_file", marrnet1_ckpt], 2)):
+             ["--marrnet1_file", marrnet1_ckpt], 2, 2)):
         out_dir = os.path.join(work, f"test_{net}")
         sk.reset_launches()
+        cst.reset_launches()
         t0 = time.perf_counter()
         rc = cli_test.main(["--net", net, "--net_file", ckpt] + extra + [
             "--input_rgb", os.path.join(photos, "*_rgb.png"),
@@ -2222,8 +2325,10 @@ def phase_family(device, work, marrnet1_ckpt):
             vis_param, "--device", "cuda"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        check(rc == 0 and sk.launches == {"deconv_final": 2 * k3},
-              f"cli.test {net}: rc {rc}, launches {sk.launches}")
+        launches = {**sk.launches, **cst.launches}
+        check(rc == 0 and launches == {"deconv_final": 2 * k3,
+                                       "critic_stem": 2 * k6},
+              f"cli.test {net}: rc {rc}, launches {launches}")
         keys = {"rgb_path", "rgb", "pred_silhou", "pred_normal",
                 "pred_depth", "pred_voxel"} | (
             {"pred_voxel_noft"} if net == "shapehd" else set())
@@ -2240,12 +2345,11 @@ def phase_family(device, work, marrnet1_ckpt):
             check(sorted(os.listdir(d)) == want, f"{d}: {os.listdir(d)}")
             tris += [parse_obj(os.path.join(d, f)) for f in want
                      if f.endswith(".obj")]
-        runs[f"test_{net}"] = dict(seconds=seconds, launches=dict(
-            sk.launches), mesh_tris=[min(tris), max(tris)])
+        runs[f"test_{net}"] = dict(seconds=seconds, launches=launches,
+                                   mesh_tris=[min(tris), max(tris)])
         log(f"[family] cli.test --net {net}: 16 photos, 2 batches of 8, "
             f"bf16, {seconds:.1f} s wall (set-up and meshes at iso 0.9 "
-            f"included); K3 "
-            f"launches {sk.launches['deconv_final']}; npz keys "
+            f"included); launches {launches}; npz keys "
             f"{sorted(keys)}; {len(tris)} meshes parsed, {min(tris)} to "
             f"{max(tris)} triangles")
 
@@ -2261,12 +2365,14 @@ def phase_family(device, work, marrnet1_ckpt):
     rk.reset_launches()
     sk.reset_launches()
     ck.reset_launches()
+    cst.reset_launches()
     t0 = time.perf_counter()
     res, _ = eval_quality(model, DataLoader(vali, b, 4), model.voxel_key,
                           tag="family")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {**rk.launches, **sk.launches, **ck.launches}
+    launches = {**rk.launches, **sk.launches, **ck.launches,
+                **cst.launches}
     n = len(vali)
     check(res["n_items"] == n == 16 and res["chamfer_n"] == 16
           and 0.0 <= res["iou_best"] <= 1.0
@@ -2275,7 +2381,8 @@ def phase_family(device, work, marrnet1_ckpt):
           f"held-out quality {res}")
     check(launches == {"render_stage1": 0, "render_stage2_scan": 0,
                        "render_stage2_samples": 0,
-                       "deconv_final": 2 * n // b, "nn_min_dist": n},
+                       "deconv_final": 2 * n // b, "nn_min_dist": n,
+                       "critic_stem": 2 * n // b},
           f"scoring launches {launches}")
     runs["score"] = dict(seconds=seconds, launches=launches, **res)
     log(f"[family] eval_quality of the ShapeHD checkpoint on {n} held-out "
@@ -2741,6 +2848,10 @@ def phase_scripts(work, tree, marrnet1_ckpt, genre_ckpt, photos):
         launches = rep["launches"]
         want = {k: 0 for k in launches}
         want["deconv_final"] = sum(k3.values())
+        # K6 scores ShapeHD's eval batch's two grids, with no gradient;
+        # WGAN-GP's critic records one in a step and reads bf16 G(z) in
+        # the eval batch, so it keeps nn.Conv3d (as phase 8)
+        want["critic_stem"] = 2 if name == "shapehd" else 0
         check(launches == want and rep["deconv_final_shapes"] == k3,
               f"{name}: launches {rep}, want {want} at {k3}")
         rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
@@ -2822,7 +2933,8 @@ def phase_scripts(work, tree, marrnet1_ckpt, genre_ckpt, photos):
     tests = (
         ("test_shapehd.sh", "shapehd", {"NET_FILE": ck(dC),
                                         "MARRNET1_FILE": marrnet1_ckpt},
-         {K3_DEC1: 2 * n}, {}, "11_pred_voxel_noft.obj"),
+         {K3_DEC1: 2 * n}, {"critic_stem": 2 * n},
+         "11_pred_voxel_noft.obj"),
         ("test_marrnet.sh", "marrnet", {"NET_FILE": ck(dD)},
          {K3_DEC1: n}, {}, "12_pred_voxel.obj"),
         ("test_genre.sh", "genre_full_model", {"NET_FILE": genre_ckpt},
@@ -2840,9 +2952,9 @@ def phase_scripts(work, tree, marrnet1_ckpt, genre_ckpt, photos):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    for (script, net, var, k3, render, mesh), (_, _, seconds, rep) in zip(
+    for (script, net, var, k3, other, mesh), (_, _, seconds, rep) in zip(
             tests, done):
-        want = {k: render.get(k, 0) for k in rep["launches"]}
+        want = {k: other.get(k, 0) for k in rep["launches"]}
         want["deconv_final"] = sum(k3.values())
         check(rep["launches"] == want and rep["deconv_final_shapes"] == k3,
               f"{script}: launches {rep}, want {want} at {k3}")
@@ -3489,6 +3601,7 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
     from genre_shapehd_tpu_torch.models.marrnet import marrnet1_net
     from genre_shapehd_tpu_torch.models.marrnet2 import Marrnet2Net
     from genre_shapehd_tpu_torch.nn import VoxelDiscriminator, init_weights
+    from genre_shapehd_tpu_torch.ops.cuda import critic_stem_kernel as cst
     from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
     from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
     from genre_shapehd_tpu_torch.train.state import (
@@ -3546,18 +3659,20 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
     vis_param = path("vis_param.json")
     with open(vis_param, "w") as f:
         json.dump({"voxel": {"isosurf_thres": 0.9}}, f)
+    # (K1 and K2, K3, K6 launches): K6 on ShapeHD's critic, both grids
     tests = {}
     for tag, net, ckpt, extra, want in (
-            ("genre_own", "genre_full_model", genre_ckpt, [], (1, 1)),
+            ("genre_own", "genre_full_model", genre_ckpt, [], (1, 1, 0)),
             ("genre_converted", "genre_full_model",
-             path("genre_full_model.pt"), [], (1, 1)),
+             path("genre_full_model.pt"), [], (1, 1, 0)),
             ("shapehd_own", "shapehd", path("shapehd_own.pt"),
-             ["--marrnet1_file", path("marrnet1_own.pt")], (0, 2)),
+             ["--marrnet1_file", path("marrnet1_own.pt")], (0, 2, 2)),
             ("shapehd_converted", "shapehd", path("shapehd.pt"),
-             ["--marrnet1_file", path("marrnet1.pt")], (0, 2))):
+             ["--marrnet1_file", path("marrnet1.pt")], (0, 2, 2))):
         out_dir = path(f"test_{tag}")
         rk.reset_launches()
         sk.reset_launches()
+        cst.reset_launches()
         t0 = time.perf_counter()
         with deterministic():
             rc = cli_test.main(["--net", net, "--net_file", ckpt] + extra + [
@@ -3567,11 +3682,12 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
                 "--batch_size", "8", "--vis_workers", "8", "--vis_param_f",
                 vis_param, "--device", "cuda"])
             torch.cuda.synchronize()
-        launches = {**rk.launches, **sk.launches}
-        k12, k3 = want
+        launches = {**rk.launches, **sk.launches, **cst.launches}
+        k12, k3, k6 = want
         check(rc == 0 and launches == {
             "render_stage1": k12, "render_stage2_scan": k12,
-            "render_stage2_samples": 0, "deconv_final": k3},
+            "render_stage2_samples": 0, "deconv_final": k3,
+            "critic_stem": k6},
             f"[refckpt] cli.test {tag}: rc {rc}, launches {launches}")
         with np.load(os.path.join(out_dir, "batch0000.npz")) as z:
             out = {k: z[k] for k in z.files}
@@ -3621,13 +3737,15 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
         os.link(ckpt, os.path.join(run_dir, "checkpoint.pt"))
         rk.reset_launches()
         sk.reset_launches()
+        cst.reset_launches()
         t0 = time.perf_counter()
         rc = cli_train.main(base + ["--expr_id", expr])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {**rk.launches, **sk.launches}
+        launches = {**rk.launches, **sk.launches, **cst.launches}
         want = {"render_stage1": 3, "render_stage2_scan": 2,
-                "render_stage2_samples": 1, "deconv_final": 2}
+                "render_stage2_samples": 1, "deconv_final": 2,
+                "critic_stem": 0}
         check(rc == 0 and launches == want, f"[refckpt] cli.train {tag}: "
               f"rc {rc}, launches {launches} != {want}")
         rows = _csv_rows(os.path.join(run_dir, "batch_loss.csv"))
@@ -3663,7 +3781,8 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
     launches = {k: sum(r["launches"][k] for r in tests.values())
                 + sum(r[k] for r in train_launches.values())
                 for k in ("render_stage1", "render_stage2_scan",
-                          "render_stage2_samples", "deconv_final")}
+                          "render_stage2_samples", "deconv_final",
+                          "critic_stem")}
     log(f"[refckpt] negative control: the step from the file's moments "
         f"moved each weight {moved / lr:.3f} lr on average (mean over "
         f"tensors of the mean |change|); from the same file with zeroed "
@@ -3757,6 +3876,9 @@ def main() -> int:
     k5 = "render_stage2_samples"
     errs[k5], ms[k5], plain_ms[k5], library_ms[k5], bounds[k5] = \
         phase_stage2_samples(device, flush)
+    k6 = "critic_stem"
+    errs[k6], ms[k6], plain_ms[k6], library_ms[k6], bounds[k6] = \
+        phase_critic_stem(device, flush)
     f32_rows = phase_float32(device, flush)
     family_k3 = phase_family_kernels(device, flush)
     del flush
@@ -3780,6 +3902,8 @@ def main() -> int:
     phase_train_profile(device, runs)
     mark("7 staged")
     family = phase_family(device, work, marrnet1_ckpt)
+    # K6 runs on ShapeHD's serving path: its launches are cli.test's
+    launches[k6] = family["test_shapehd"]["launches"][k6]
     phase_family_profile(device, family)
     mark("8 family")
     shapenet = phase_shapenet(work)
@@ -3802,7 +3926,7 @@ def main() -> int:
     mark("12 reference checkpoints")
 
     kernels = []
-    for name in ("render_stage1", "render_stage2_scan", k3, k4, k5):
+    for name in ("render_stage1", "render_stage2_scan", k3, k4, k5, k6):
         bms, by, nbytes = bounds[name]
         check(launches[name] > 0, f"{name} was not launched on its path")
         kernels.append({

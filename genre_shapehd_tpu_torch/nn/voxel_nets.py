@@ -26,8 +26,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda import critic_stem_kernel
 from ..ops.cuda.subpixel_kernel import deconv_final
 from ..parallel import mesh
+from ..utils import trace
 from .resnet import batch_norm
 
 
@@ -174,7 +176,11 @@ class VoxelDiscriminator(nn.Module):
     """(N, res, res, res) -> (N,) Wasserstein critic scores: k4 s2 p1
     convolutions with LeakyReLU(0.2), no norm and no bias (at res 128 an
     extra nf -> nf stage after the first), then a k4 VALID convolution
-    from 4³ to one score."""
+    from 4³ to one score.  The first convolution and its activation (one
+    input channel) run the hand-written kernel K6 where
+    ``critic_stem_kernel.uses_kernel`` says so: a CUDA tensor under bf16
+    autocast, with no gradient recorded (``ops/cuda/critic_stem_kernel.py``),
+    under the span ``shapehd.critic.stem`` either way."""
 
     WIDTHS = {128: (1, 1, 2, 4, 8), 64: (1, 2, 4, 8), 32: (1, 2, 4)}
 
@@ -190,8 +196,16 @@ class VoxelDiscriminator(nn.Module):
         setattr(self, f"Conv3D_{self.n_mid}", Conv3D(cin, 1, 4, 1, 0,
                                                      use_bias=False))
 
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """LeakyReLU(0.2) of the first convolution: K6 or the layer."""
+        weight = self.Conv3D_0.Conv_0.weight
+        if critic_stem_kernel.uses_kernel(x, weight):
+            return critic_stem_kernel.critic_stem(x, weight)
+        return F.leaky_relu(self.Conv3D_0(x), 0.2)
+
     def forward(self, v: torch.Tensor) -> torch.Tensor:
-        x = v[:, None]
-        for i in range(self.n_mid):
+        with trace.span(trace.CRITIC_STEM):
+            x = self.stem(v[:, None])
+        for i in range(1, self.n_mid):
             x = F.leaky_relu(getattr(self, f"Conv3D_{i}")(x), 0.2)
         return getattr(self, f"Conv3D_{self.n_mid}")(x).reshape(v.shape[0])

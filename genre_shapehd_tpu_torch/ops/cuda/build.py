@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("render_kernel.cu", "deconv_final_kernel.cu", "chamfer_kernel.cu")
+SOURCES = ("render_kernel.cu", "deconv_final_kernel.cu", "chamfer_kernel.cu",
+           "critic_stem_kernel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

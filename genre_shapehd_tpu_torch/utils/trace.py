@@ -4,7 +4,9 @@ opens, by the names below, and the spans that time a stage's backward.
 Names follow ``<model>.<stage>[.backward]``: ``genre.net1`` is the
 forward of GenRe's first U-ResNet, ``genre.net1.backward`` its backward
 on autograd's thread; a stage inside a stage adds a level
-(``genre.refine.decoder``).  The steps' phases (``genre.train_step``,
+(``genre.refine.decoder``), and so does a layer inside a stage
+(``shapehd.critic.stem``, opened by the critic wherever it runs, a
+WGAN-GP step's included).  The steps' phases (``genre.train_step``,
 ``genre.zero_grad``, ``genre.loss``, ``genre.backward``,
 ``genre.optimizer``) keep GenRe's prefix in every model that steps
 through ``models/base.py``; the collectives' spans are ``dp.`` and
@@ -53,6 +55,11 @@ NET_NOFT = "shapehd.net_noft"
 STAGES = (NET1, CAMERA_BP, RENDER, NET2, SPHERICAL_BP, REFINE,
           REFINE_ENCODER, REFINE_DECODER, MARRNET1, MARRNET2, CRITIC,
           NET_NOFT)
+
+# a layer inside a stage, whichever path computes it (no backward span):
+# the critic's first convolution and its activation
+# (``nn/voxel_nets.py::VoxelDiscriminator``; K6 or ``nn.Conv3d``)
+CRITIC_STEM = "shapehd.critic.stem"
 #: the suffix of a stage's backward span
 BACKWARD_SUFFIX = ".backward"
 

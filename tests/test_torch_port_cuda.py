@@ -1,8 +1,8 @@
 """PyTorch port, CUDA kernels K1 (render_stage1), K2 (render_stage2_scan),
-K3 (deconv_final), K4 (nn_min_dist) and K5 (render_stage2_samples) against
-their plain versions on the card, the renderer's gradient on the card
-against the CPU's, and one training step on the card.  Skipped where
-``torch.cuda.is_available()`` is false.
+K3 (deconv_final), K4 (nn_min_dist), K5 (render_stage2_samples) and K6
+(critic_stem) against their plain versions on the card, the renderer's
+gradient on the card against the CPU's, and one training step on the
+card.  Skipped where ``torch.cuda.is_available()`` is false.
 
 On a machine with a GPU and nvcc:
   python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -15,6 +15,7 @@ import torch
 from genre_shapehd_tpu_torch.nn.voxel_nets import Deconv3D
 from genre_shapehd_tpu_torch.ops import chamfer
 from genre_shapehd_tpu_torch.ops.cuda import chamfer_kernel as ck
+from genre_shapehd_tpu_torch.ops.cuda import critic_stem_kernel as stem
 from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
 from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
 
@@ -488,3 +489,134 @@ def test_batchnorm_on_two_gloo_ranks_on_the_card(device, tmp_path):
             for k in ("running_mean", "running_var"):
                 err = float((got[k] - r_ref[k]).abs().max())
                 assert err <= 1e-6, (case, k, err)
+
+
+@pytest.mark.parametrize("b,r", [(2, 32), (4, 64), (8, 128)])
+def test_critic_stem_matches_plain(device, b, r):
+    """K6 against ``critic_stem_plain`` in bf16 (cuDNN's convolution and
+    ``F.leaky_relu`` under autocast), on float32 probabilities in (0, 1)
+    as the critic sees them.
+
+    K6 rounds v and the weight to bf16 as autocast does, sums in float32,
+    applies the activation to the float32 sum and rounds once: each output
+    lies within one bf16 rounding (2^-8 relative) of the float64 result
+    on the rounded inputs, with room for the float32 sums' order (64
+    terms: 64 * 2^-24 of their summed magnitudes).  The plain path rounds
+    twice, the convolution's sum and then the activation's product, so
+    the two lie within two bf16 steps (2^-6 relative) of each other."""
+    g = torch.Generator(device).manual_seed(r)
+    v = torch.rand((b, 1, r, r, r), generator=g, device=device)
+    w = torch.randn((64, 1, 4, 4, 4), generator=g, device=device) * 0.1
+    stem.reset_launches()
+    with torch.inference_mode():
+        out = stem.critic_stem(v, w)
+        torch.cuda.synchronize()
+        assert stem.launches == {"critic_stem": 1}
+        assert out.shape == (b, 64, r // 2, r // 2, r // 2)
+        assert out.dtype == torch.bfloat16 and out.is_contiguous()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            plain = stem.critic_stem_plain(v, w)
+        vb, wb = (t.to(torch.bfloat16).double() for t in (v, w))
+        exact = torch.nn.functional.leaky_relu(
+            torch.nn.functional.conv3d(vb, wb, None, 2, 1), 0.2)
+        slack = 64 * 2.0 ** -24 * torch.nn.functional.conv3d(
+            vb.abs(), wb.abs(), None, 2, 1)
+        got, plain = out.double(), plain.double()
+        e = (got - exact).abs() - (2.0 ** -8 * exact.abs() + slack)
+        assert float(e.max()) <= 0, float(e.max())
+        d = (got - plain).abs() - (2.0 ** -6 * torch.maximum(
+            got.abs(), plain.abs()) + 2 * slack)
+        assert float(d.max()) <= 0, float(d.max())
+
+
+def _critic_last_input(net, v):
+    """The critic's scores on v and the input of its last layer."""
+    seen = []
+    hook = getattr(net, f"Conv3D_{net.n_mid}").register_forward_hook(
+        lambda m, args, out: seen.append(args[0]))
+    try:
+        score = net(v)
+    finally:
+        hook.remove()
+    return score, seen[0]
+
+
+def test_critic_score_on_k6_against_cudnn(device):
+    """The whole critic (nf 64, 128³) under bf16 autocast on probabilities:
+    with K6 (inference mode) against the cuDNN path (grad on, the weights
+    needing a gradient), each score's difference over the summed
+    magnitudes of the last layer's products within the benchmark's
+    ``critic`` limit, 3.3e-4 (the scores' own scale: they are sums that
+    cancel); K6 launches once, and not at all with grad on."""
+    from genre_shapehd_tpu_torch.nn import VoxelDiscriminator
+    from genre_shapehd_tpu_torch.nn.init import init_weights
+    net = VoxelDiscriminator(64, 128).eval()
+    init_weights(net, torch.Generator().manual_seed(4))
+    net.to(device)
+    v = _volume(4, 128, 6, device)
+    stem.reset_launches()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        with torch.inference_mode():
+            k6, _ = _critic_last_input(net, v)
+        torch.cuda.synchronize()
+        assert stem.launches == {"critic_stem": 1}
+        ref, last = _critic_last_input(net, v)
+        torch.cuda.synchronize()
+        assert stem.launches == {"critic_stem": 1}
+    w = getattr(net, f"Conv3D_{net.n_mid}").Conv_0.weight.detach()
+    with torch.no_grad():
+        scale = torch.nn.functional.conv3d(
+            last.detach().float().abs(), w.abs()).reshape(-1)
+        err = (k6.float() - ref.detach().float()).abs() / scale
+    assert float(err.max()) <= 3.3e-4, err.tolist()
+
+
+def test_critic_stem_launches_in_shapehd_predict_step(device, tmp_path):
+    """One ``shapehd.ModelTest.predict_step`` in bf16 (64² photos -> 32³
+    voxels, batch 2) launches K6 twice, once on each voxel grid (the
+    fine-tuned and the frozen MarrNet-2's); a critic call with grad on,
+    as in the WGAN-GP step or ShapeHD's fine-tuning, launches none."""
+    from genre_shapehd_tpu_torch.cli import options
+    from genre_shapehd_tpu_torch.core.checkpoint import save_checkpoint
+    from genre_shapehd_tpu_torch.core.convert import torch_to_jax
+    from genre_shapehd_tpu_torch.core.registry import get_model
+    from genre_shapehd_tpu_torch.models.base import default_opt
+    from genre_shapehd_tpu_torch.models.marrnet import marrnet1_net
+
+    def write(path, modules, names):
+        payload = []
+        for m in modules:
+            params, stats = torch_to_jax(
+                {k: t.cpu() for k, t in m.state_dict().items()})
+            payload.append({"params": params, "batch_stats": stats})
+        save_checkpoint(path, {"nets": payload, "optimizers": [],
+                               "epoch": 0, "loss_eval": 0.0,
+                               "net_names": list(names), "opt_names": []})
+
+    train = get_model("shapehd")(default_opt(
+        device="cpu", im_size=64, vox_res=32, canon_sup=True,
+        w_gan_loss=0.5, lr=1e-4, no_aug=True, batch_size=2))
+    train.init_state(0)
+    files = (str(tmp_path / "shapehd.pt"), str(tmp_path / "marrnet1.pt"))
+    write(files[0], train.net_modules().values(), train.net_names)
+    write(files[1], [marrnet1_net(64)], ["net"])
+    model = get_model("shapehd", test=True)(options.parse_test([
+        "--net", "shapehd", "--input_rgb", "none", "--output_dir",
+        str(tmp_path), "--vis_workers", "0", "--im_size", "64",
+        "--vox_res", "32", "--batch_size", "2", "--dtype", "bfloat16",
+        "--device", "cuda", "--net_file", files[0], "--marrnet1_file",
+        files[1]]))
+    rng = np.random.default_rng(0)
+    batch = {"rgb": rng.normal(size=(2, 64, 64, 3)).astype(np.float32)}
+    stem.reset_launches()
+    pred = model.predict_step(batch)
+    torch.cuda.synchronize()
+    assert stem.launches == {"critic_stem": 2}
+    assert all(bool(torch.isfinite(pred[k]).all())
+               for k in ("is_real", "is_real_noft"))
+    net_d = model.net_d.requires_grad_(True)
+    v = torch.rand((2, 32, 32, 32), device=device)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        net_d(v).sum().backward()
+    torch.cuda.synchronize()
+    assert stem.launches == {"critic_stem": 2}

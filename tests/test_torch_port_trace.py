@@ -289,6 +289,7 @@ READS = {
                              trace.SPHERICAL_BP + ".backward"),
     "render_ms.train": (trace.RENDER, trace.RENDER + ".backward"),
     "optimizer_ms.train": (trace.OPTIMIZER, trace.ZERO_GRAD),
+    "critic_stem_ms.infer": (trace.CRITIC_STEM,),
 }
 
 

@@ -17,6 +17,10 @@ kernel's bound.  Each result is held against the plain version first.
               64 x 64 x 32) with a halo plane at each end, padded to 40
               planes (output planes of positions 1 .. 32), bfloat16 and
               float32 (a tree whose K3 takes no slab skips it)
+  critic_stem K6 ``critic_stem`` at the ShapeHD cell's (128, 1, 128^3),
+              checked and built by ``chip_smoke.critic_stem_row``, beside
+              ``critic_stem_plain`` under bf16 autocast and bf16
+              ``F.conv3d`` with ``F.leaky_relu``
   k4          K4 ``nn_min_dist`` at 8 x 8192 x 8192 and at the scoring
               path's 1 x 1024 x 1024 (rtol 1e-4, atol 1e-5)
   stage2_host the host's time to return from one call of the renderer's
@@ -140,6 +144,20 @@ def k3_slab(cs, dev, g, flush, args, timed):
     return out
 
 
+def critic_stem(cs, dev, g, flush, args, timed):
+    import torch
+    row = cs.critic_stem_row(dev, 128, 17)
+    fn = row.pop("call")
+    row["bound_ms"], row["bound_by"], _ = row.pop("bound")
+    timed["critic_stem"] = (fn, "critic_stem")
+    with torch.inference_mode():
+        for key, f in (("ms", fn), ("plain_ms", row.pop("plain")),
+                       ("library_ms", row.pop("library"))):
+            row[key] = cs.time_ms(f, flush, args.reps)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return {"critic_stem": row}
+
+
 def k4(cs, dev, g, flush, args, timed):
     import torch
     from genre_shapehd_tpu_torch.ops.cuda import chamfer_kernel as ck
@@ -244,7 +262,7 @@ def k3_host(cs, dev, g, flush, args, timed):
 
 
 KERNELS = {"k3_f32": k3_f32, "k3_bf16": k3_bf16, "k3_slab": k3_slab,
-           "k3_host": k3_host,
+           "k3_host": k3_host, "critic_stem": critic_stem,
            "k4": k4, "stage2_host": stage2_host}
 
 
