@@ -90,8 +90,9 @@ raising on failure:
     --gan_d_iter 2), shapehd --canon_sup --marrnet2 --gan --w_gan_loss
     1e-3, marrnet --canon_sup --marrnet1 <phase 7's stage 1> --marrnet2:
     finite losses, K3's and K6's launches (K6 twice ShapeHD's eval
-    batch, never in a step), which nets moved (the frozen ones bit for
-    bit), step time, peak memory; ``cli.test --net marrnet`` and ``--net
+    batch, once each way a ShapeHD step, its backward on K3; never in a
+    WGAN-GP step), which nets moved (the frozen ones bit for bit), step
+    time, peak memory; ``cli.test --net marrnet`` and ``--net
     shapehd --marrnet1_file`` on phase 3's photos at batch 8 (K3 once /
     twice a batch, K6 twice a ShapeHD batch: the kernels line's K6
     launches, the .npz keys, the meshes at 0.9); the ShapeHD checkpoint's
@@ -168,7 +169,9 @@ raising on failure:
     9's MarrNet-1, MARRNET2): each run's views (the view without canonical
     voxels left out), finite losses, the run directory its suffix names,
     K3's launches by shape and K6's (``[launches]``, the last line of a
-    run; K6 twice ShapeHD's eval batch and twice a ShapeHD test photo),
+    run; K6 once each way a ShapeHD step, its backward on K3 at the
+    generator's shape, twice ShapeHD's eval batch and twice a ShapeHD test
+    photo),
     step and data time, peak memory, which nets moved and the frozen
     ones bit for bit; then test_shapehd.sh, test_marrnet.sh and
     test_genre.sh at once on 8 of phase 3's photos (K3, and K1, K2 for
@@ -723,7 +726,8 @@ def critic_stem_row(device, b, seed):
         cst.reset_launches()
         out = cst.critic_stem(v, w)
         torch.cuda.synchronize()
-        check(cst.launches == {"critic_stem": 1} and out.dtype == bf
+        check(cst.launches == {"critic_stem": 1, "critic_stem_backward": 0}
+              and out.dtype == bf
               and out.shape == (b, 64, r // 2, r // 2, r // 2)
               and out.is_contiguous(),
               f"K6: launches {cst.launches}, {out.dtype} {out.shape}")
@@ -1247,7 +1251,7 @@ def device_profile(prof, n, wall_ms, own_names, prefixes=("genre.",)):
 
 
 OWN_KERNELS = ("stage1_kernel", "slab_scan_kernel", "slab_samples_kernel",
-               "deconv_final_")
+               "deconv_final_", "critic_stem_kernel")
 
 
 def phase_throughput(device, ckpt):
@@ -2187,27 +2191,28 @@ def phase_family(device, work, marrnet1_ckpt):
     # K3 a train step and an eval batch: MarrNet-2's decoder once; G once
     # in D's phase and once in its own (every step, or every second one),
     # and once an eval batch; ShapeHD's net once a step and, with the
-    # frozen copy, twice an eval batch.  K6 twice ShapeHD's eval batch (its
-    # critic on both grids, no gradient); WGAN-GP's critic records a
-    # gradient in a step and reads bf16 G(z) in the eval batch, so it keeps
-    # nn.Conv3d
+    # frozen copy, twice an eval batch.  K6 (forward, backward): ShapeHD's
+    # frozen critic once each way a step, its backward on K3 (a second K3
+    # launch a step), and forward twice an eval batch (both grids, no
+    # gradient); WGAN-GP's critic trains in a step and reads bf16 G(z) in
+    # the eval batch, so it keeps nn.Conv3d
     runs_spec = (
         ("marrnet2", ["--net", "marrnet2", "--canon_sup", "--lr", "1e-3"],
-         dA, "loss", steps + 1, 0),
+         dA, "loss", steps + 1, (0, 0)),
         ("wgangp", ["--net", "wgangp", "--canon_voxel", "--lr", "1e-4"],
-         dB, "err_d_gp", 2 * steps + 1, 0),
+         dB, "err_d_gp", 2 * steps + 1, (0, 0)),
         ("wgangp_d_iter2", ["--net", "wgangp", "--canon_voxel",
                             "--gan_d_iter", "2", "--lr", "1e-4",
                             "--expr_id", "1"], dB2, "err_d_gp",
-         steps + steps // 2 + 1, 0),
+         steps + steps // 2 + 1, (0, 0)),
         ("shapehd", ["--net", "shapehd", "--canon_sup", "--marrnet2", ckA,
                      "--gan", ckB, "--w_gan_loss", "1e-3", "--lr", "1e-4"],
-         dC, "gan", steps + 2, 2),
+         dC, "gan", 2 * steps + 2, (steps + 2, steps)),
         ("marrnet", ["--net", "marrnet", "--canon_sup", "--marrnet1",
                      marrnet1_ckpt, "--marrnet2", ckA, "--lr", "1e-4"],
-         dD, "loss", steps + 1, 0))
+         dD, "loss", steps + 1, (0, 0)))
     runs = {}
-    for name, extra, d, metric, k3, k6 in runs_spec:
+    for name, extra, d, metric, k3, (k6, k6b) in runs_spec:
         rk.reset_launches()
         sk.reset_launches()
         ck.reset_launches()
@@ -2223,7 +2228,8 @@ def phase_family(device, work, marrnet1_ckpt):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         check(rc == 0, f"cli.train {name} returned {rc}")
         want = {k: 0 for k in launches}
-        want.update(deconv_final=k3, critic_stem=k6)
+        want.update(deconv_final=k3, critic_stem=k6,
+                    critic_stem_backward=k6b)
         check(launches == want, f"{name}: launches {launches} != {want}")
         rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
         check(len(rows) == steps, f"{name}: {len(rows)} logged steps")
@@ -2327,7 +2333,8 @@ def phase_family(device, work, marrnet1_ckpt):
         seconds = time.perf_counter() - t0
         launches = {**sk.launches, **cst.launches}
         check(rc == 0 and launches == {"deconv_final": 2 * k3,
-                                       "critic_stem": 2 * k6},
+                                       "critic_stem": 2 * k6,
+                                       "critic_stem_backward": 0},
               f"cli.test {net}: rc {rc}, launches {launches}")
         keys = {"rgb_path", "rgb", "pred_silhou", "pred_normal",
                 "pred_depth", "pred_voxel"} | (
@@ -2382,7 +2389,8 @@ def phase_family(device, work, marrnet1_ckpt):
     check(launches == {"render_stage1": 0, "render_stage2_scan": 0,
                        "render_stage2_samples": 0,
                        "deconv_final": 2 * n // b, "nn_min_dist": n,
-                       "critic_stem": 2 * n // b},
+                       "critic_stem": 2 * n // b,
+                       "critic_stem_backward": 0},
           f"scoring launches {launches}")
     runs["score"] = dict(seconds=seconds, launches=launches, **res)
     log(f"[family] eval_quality of the ShapeHD checkpoint on {n} held-out "
@@ -2800,7 +2808,9 @@ def phase_scripts(work, tree, marrnet1_ckpt, genre_ckpt, photos):
     n_tr, n_va = SHAPENET["train"][0] - 1, SHAPENET["vali"][0]
     # (run, script, variables, run dir, a loss term, K3 by shape): a
     # train step and the eval batch run MarrNet-2's decoder once, ShapeHD's
-    # eval twice (its frozen copy), WGAN-GP's step the generator twice
+    # eval twice (its frozen copy), WGAN-GP's step the generator twice;
+    # ShapeHD's step runs its critic's stem backward on K3 too, at the
+    # generator's shape (64 channels at 64³)
     stages = (
         ("marrnet2", "train_marrnet2.sh", {}, dA, "loss",
          {K3_DEC: steps + 1}),
@@ -2808,7 +2818,7 @@ def phase_scripts(work, tree, marrnet1_ckpt, genre_ckpt, photos):
          {K3_GEN: 2 * steps + 1}),
         ("shapehd", "finetune_shapehd.sh",
          {"MARRNET2": ck(dA), "GAN": ck(dB)}, dC, "gan",
-         {K3_DEC: steps + 2}),
+         {K3_DEC: steps + 2, K3_GEN: steps}),
         ("marrnet", "finetune_marrnet.sh",
          {"MARRNET1": marrnet1_ckpt, "MARRNET2": ck(dA)}, dD, "loss",
          {K3_DEC: steps + 1}))
@@ -2848,10 +2858,12 @@ def phase_scripts(work, tree, marrnet1_ckpt, genre_ckpt, photos):
         launches = rep["launches"]
         want = {k: 0 for k in launches}
         want["deconv_final"] = sum(k3.values())
-        # K6 scores ShapeHD's eval batch's two grids, with no gradient;
-        # WGAN-GP's critic records one in a step and reads bf16 G(z) in
-        # the eval batch, so it keeps nn.Conv3d (as phase 8)
-        want["critic_stem"] = 2 if name == "shapehd" else 0
+        # K6 runs ShapeHD's frozen critic once each way a step and scores
+        # its eval batch's two grids; WGAN-GP's critic trains in a step
+        # and reads bf16 G(z) in the eval batch, so it keeps nn.Conv3d (as
+        # phase 8)
+        if name == "shapehd":
+            want.update(critic_stem=steps + 2, critic_stem_backward=steps)
         check(launches == want and rep["deconv_final_shapes"] == k3,
               f"{name}: launches {rep}, want {want} at {k3}")
         rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
@@ -3687,7 +3699,7 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
         check(rc == 0 and launches == {
             "render_stage1": k12, "render_stage2_scan": k12,
             "render_stage2_samples": 0, "deconv_final": k3,
-            "critic_stem": k6},
+            "critic_stem": k6, "critic_stem_backward": 0},
             f"[refckpt] cli.test {tag}: rc {rc}, launches {launches}")
         with np.load(os.path.join(out_dir, "batch0000.npz")) as z:
             out = {k: z[k] for k in z.files}
@@ -3745,7 +3757,7 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
         launches = {**rk.launches, **sk.launches, **cst.launches}
         want = {"render_stage1": 3, "render_stage2_scan": 2,
                 "render_stage2_samples": 1, "deconv_final": 2,
-                "critic_stem": 0}
+                "critic_stem": 0, "critic_stem_backward": 0}
         check(rc == 0 and launches == want, f"[refckpt] cli.train {tag}: "
               f"rc {rc}, launches {launches} != {want}")
         rows = _csv_rows(os.path.join(run_dir, "batch_loss.csv"))
@@ -3782,7 +3794,7 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
                 + sum(r[k] for r in train_launches.values())
                 for k in ("render_stage1", "render_stage2_scan",
                           "render_stage2_samples", "deconv_final",
-                          "critic_stem")}
+                          "critic_stem", "critic_stem_backward")}
     log(f"[refckpt] negative control: the step from the file's moments "
         f"moved each weight {moved / lr:.3f} lr on average (mean over "
         f"tensors of the mean |change|); from the same file with zeroed "

@@ -6,8 +6,13 @@ Three nets: ``net``, the finetuned MarrNet-2 (from ``--marrnet2``);
 (``--gan``'s ``nets[1]``).  Loss: BCE(pred, gt) - ``w_gan_loss`` * mean
 D(sigmoid(pred)); only ``net`` is optimised, the critic passing the
 gradient to its input only.  A train step computes what the loss reads
-(``net`` and the critic on its output: one K3 launch); an eval or test
-batch also runs ``net_noft`` and scores its output (two).  Across ranks
+(``net`` and the critic on its output); an eval or test batch also runs
+``net_noft`` and scores its output.  On the card in bfloat16 the
+decoders' last layer runs K3, and the critic's first layer K6 with no
+gradient recorded or, in a train step, with its backward to the
+critic's input, whose transposed convolution is K3 again: a train step
+launches K3 twice and K6 once each way, an eval or test batch K3 and K6
+twice each.  Across ranks
 (``cli.train --multihost``) only ``net``'s gradients are averaged; the
 frozen copy and the critic take no gradient and run in eval mode, so
 their parameters and statistics stay as loaded on every rank.

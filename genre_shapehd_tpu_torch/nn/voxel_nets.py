@@ -179,8 +179,12 @@ class VoxelDiscriminator(nn.Module):
     from 4³ to one score.  The first convolution and its activation (one
     input channel) run the hand-written kernel K6 where
     ``critic_stem_kernel.uses_kernel`` says so: a CUDA tensor under bf16
-    autocast, with no gradient recorded (``ops/cuda/critic_stem_kernel.py``),
-    under the span ``shapehd.critic.stem`` either way."""
+    autocast with the layer's weight taking no gradient, as in inference
+    and in ShapeHD's fine-tuning, whose frozen critic passes the
+    gradient to its input through K6's backward
+    (``ops/cuda/critic_stem_kernel.py``).  Either way the layer runs as
+    the stage ``shapehd.critic.stem``, its backward timed under
+    ``shapehd.critic.stem.backward`` while a profiler records."""
 
     WIDTHS = {128: (1, 1, 2, 4, 8), 64: (1, 2, 4, 8), 32: (1, 2, 4)}
 
@@ -196,16 +200,19 @@ class VoxelDiscriminator(nn.Module):
         setattr(self, f"Conv3D_{self.n_mid}", Conv3D(cin, 1, 4, 1, 0,
                                                      use_bias=False))
 
-    def stem(self, x: torch.Tensor) -> torch.Tensor:
-        """LeakyReLU(0.2) of the first convolution: K6 or the layer."""
-        weight = self.Conv3D_0.Conv_0.weight
+    @staticmethod
+    def stem(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """LeakyReLU(0.2) of the first convolution (k4 s2 p1, no bias):
+        K6 or the plain layer."""
         if critic_stem_kernel.uses_kernel(x, weight):
             return critic_stem_kernel.critic_stem(x, weight)
-        return F.leaky_relu(self.Conv3D_0(x), 0.2)
+        return F.leaky_relu(F.conv3d(x, weight, None, 2, 1), 0.2)
 
     def forward(self, v: torch.Tensor) -> torch.Tensor:
-        with trace.span(trace.CRITIC_STEM):
-            x = self.stem(v[:, None])
+        # the weight is a stage input too, so that the backward span of a
+        # critic whose weight trains closes once its gradient is out
+        x = trace.stage(trace.CRITIC_STEM, self.stem, v[:, None],
+                        self.Conv3D_0.Conv_0.weight)
         for i in range(1, self.n_mid):
             x = F.leaky_relu(getattr(self, f"Conv3D_{i}")(x), 0.2)
         return getattr(self, f"Conv3D_{self.n_mid}")(x).reshape(v.shape[0])

@@ -11,15 +11,31 @@ plain version, its GEMM formulation and launch count.
      and the cast and the activation as passes of their own; the kernel
      reads v once and writes the activation once.
 
-The kernel serves inference under bfloat16 autocast only
-(:func:`uses_kernel`): it has no backward and no float32 path, so a
-gradient-recording, float32 or CPU call runs ``nn.Conv3d`` and
-``F.leaky_relu`` as before.  It reads v as float32 and rounds it to
+The kernel serves bfloat16 autocast on the card wherever the layer's
+weight takes no gradient (:func:`uses_kernel`): inference, and ShapeHD's
+fine-tuning, whose critic is frozen but passes the loss's gradient back
+to its input.  It has no float32 path and no gradient for the weight, so
+a float32 or CPU call, and one whose weight needs a gradient (the
+WGAN-GP critic's training), runs ``nn.Conv3d`` and ``F.leaky_relu`` as
+before.  It reads v as float32 and rounds it to
 bfloat16 as autocast's cast would, rounds the float32 weight
 to bfloat16, sums in float32, applies the activation to the float32 sum
 and rounds once.  The plain version under autocast rounds the
 convolution's sum and then the activation's product, so the two differ by
 up to one bfloat16 rounding of the output.
+
+The backward (:class:`_CriticStem`) returns v's gradient alone,
+:func:`input_grad`: the activation's slope applied to the output's
+gradient g by the sign of the saved output y (the sign of the
+pre-activation, the slope being positive), then the convolution's
+transpose, ``conv_transpose3d(., W, stride 2, padding 1)`` from 64
+channels to one, which is the function K3 computes
+(``subpixel_kernel.py``; the stem's weight (64, 1, 4, 4, 4) is K3's
+layout), on bfloat16 with a zero bias, then the float32 upcast that
+autocast's cast of v gives its gradient.  The mask is
+``F.leaky_relu``'s own backward, one pass that rounds 0.2 g to bfloat16;
+K3 sums its taps in float32 and rounds once, where cuDNN's transposed
+convolution may round more often.
 
 :func:`critic_stem_gemm` is the kernel's formulation in PyTorch (each
 output position's 64 taps times the (64 taps x 64 channels) weight), so
@@ -33,8 +49,10 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import build
+from . import subpixel_kernel
 
 SOURCE = "critic_stem_kernel.cu"
 #: the R the kernel is instantiated for (the ``switch`` of its entry point)
@@ -44,7 +62,7 @@ COUT = 64
 SLOPE = 0.2
 
 #: launches of the kernel since the last :func:`reset_launches`
-launches: Dict[str, int] = {"critic_stem": 0}
+launches: Dict[str, int] = {"critic_stem": 0, "critic_stem_backward": 0}
 
 _lib = None
 
@@ -75,17 +93,28 @@ def critic_stem_gemm(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return out.transpose(1, 2).reshape(bsz, weight.shape[0], o, o, o)
 
 
+def input_grad(g: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
+               deconv=subpixel_kernel.deconv_final_plain) -> torch.Tensor:
+    """v's gradient from the gradient ``g`` of the stem's output ``y``
+    (both (B, 64, S, S, S)): ``g`` where y > 0, ``SLOPE * g`` elsewhere
+    (the activation's backward on its own output, one elementwise pass),
+    then ``deconv(., weight, 0)``, ``conv_transpose3d`` with stride 2 and
+    padding 1 to (B, 1, 2S, 2S, 2S), in float32.  ``deconv`` is K3's
+    function: its launch on the card, its plain version in the tests."""
+    masked = torch.ops.aten.leaky_relu_backward(g, y, SLOPE, True)
+    return deconv(masked, weight, weight.new_zeros(1)).float()
+
+
 def takes(v: torch.Tensor, weight: torch.Tensor) -> bool:
     """Whether K6 takes the call: v (B, 1, R, R, R) float32 at an R the
     kernel is built for, the weight (64, 1, 4, 4, 4) on v's CUDA device,
-    and autograd recording nothing of the call."""
+    and no gradient recorded for the weight (v's may be)."""
     return (v.device.type == "cuda" and weight.device == v.device
             and v.dtype == torch.float32 and v.dim() == 5
             and v.shape[1] == 1 and v.shape[2] in RESOLUTIONS
             and v.shape[2] == v.shape[3] == v.shape[4]
             and tuple(weight.shape) == (COUT, 1, 4, 4, 4)
-            and not (torch.is_grad_enabled()
-                     and (v.requires_grad or weight.requires_grad)))
+            and not (torch.is_grad_enabled() and weight.requires_grad))
 
 
 def uses_kernel(v: torch.Tensor, weight: torch.Tensor) -> bool:
@@ -106,17 +135,8 @@ def _library():
     return _lib
 
 
-def critic_stem(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """K6 on v (B, 1, R, R, R) and the layer's weight (64, 1, 4, 4, 4) as
-    ``nn.Conv3d`` holds it: (B, 64, R/2, R/2, R/2) bfloat16, no gradient."""
-    if not takes(v, weight):
-        raise ValueError(
-            f"critic_stem takes float32 v (B, 1, R, R, R), R in "
-            f"{RESOLUTIONS}, and a weight ({COUT}, 1, 4, 4, 4) on one CUDA "
-            f"device, with no gradient recorded (K6 has no backward); got "
-            f"v {tuple(v.shape)} {v.dtype} on {v.device}, weight "
-            f"{tuple(weight.shape)} on {weight.device}, grad "
-            f"{torch.is_grad_enabled()}")
+def _launch(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """K6's launch: (B, 64, R/2, R/2, R/2) bfloat16."""
     v = v.contiguous()
     w = weight.float().reshape(COUT, 64).contiguous()
     bsz, r = v.shape[0], v.shape[2]
@@ -132,3 +152,38 @@ def critic_stem(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"critic_stem: CUDA error {err} at launch")
     return out
+
+
+class _CriticStem(torch.autograd.Function):
+    """Forward: K6, its output saved.  Backward: v's gradient by
+    :func:`input_grad` with K3's launch (the weight takes none)."""
+
+    @staticmethod
+    def forward(ctx, v, weight):
+        y = _launch(v, weight)
+        ctx.save_for_backward(y, weight)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        y, weight = ctx.saved_tensors
+        gv = input_grad(g.to(torch.bfloat16), y, weight.float(),
+                        subpixel_kernel._launch)
+        launches["critic_stem_backward"] += 1
+        return gv, None
+
+
+def critic_stem(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """K6 on v (B, 1, R, R, R) and the layer's weight (64, 1, 4, 4, 4) as
+    ``nn.Conv3d`` holds it: (B, 64, R/2, R/2, R/2) bfloat16, with v's
+    gradient where autograd records one."""
+    if not takes(v, weight):
+        raise ValueError(
+            f"critic_stem takes float32 v (B, 1, R, R, R), R in "
+            f"{RESOLUTIONS}, and a weight ({COUT}, 1, 4, 4, 4) on one CUDA "
+            f"device, with no gradient recorded for the weight (K6 has no "
+            f"backward for it); got v {tuple(v.shape)} {v.dtype} on "
+            f"{v.device}, weight {tuple(weight.shape)} on {weight.device}, "
+            f"weight grad {torch.is_grad_enabled() and weight.requires_grad}")
+    return _CriticStem.apply(v, weight)

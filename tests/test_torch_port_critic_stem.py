@@ -2,11 +2,12 @@
 no bias, and LeakyReLU(0.2); K6 ``critic_stem`` on the card) on the CPU:
 the kernel's GEMM formulation against the plain version and against the
 JAX package's first critic layer; the predicate that chooses K6 (a CUDA
-tensor, bf16 autocast, no gradient recorded), on fake CUDA tensors and
-the real autocast and grad state; the wrapper's refusals; and the
-critic's routing of its first layer, under its span.
+tensor, bf16 autocast, no gradient recorded for the weight), on fake CUDA
+tensors and the real autocast and grad state; the wrapper's refusals; and
+the critic's routing of its first layer, under its span.
 
-The kernel itself runs on the card only (``tests/test_torch_port_cuda.py``).
+The kernel itself runs on the card only (``tests/test_torch_port_cuda.py``,
+its backward ``tests/test_torch_port_critic_stem_cuda.py``).
 """
 
 import contextlib
@@ -91,7 +92,7 @@ PREDICATE = {
     "grad_on_wgangp_critic": (("cuda", torch.bfloat16, "grad", False, True,
                                torch.float32, 128), False),
     "grad_on_shapehd_finetune": (("cuda", torch.bfloat16, "grad", True,
-                                  False, torch.float32, 128), False),
+                                  False, torch.float32, 128), True),
     "float32_no_autocast": (("cuda", None, "inference", False, True,
                              torch.float32, 128), False),
     "float16_autocast": (("cuda", torch.float16, "inference", False, True,
@@ -110,11 +111,11 @@ PREDICATE = {
 @pytest.mark.parametrize("case", sorted(PREDICATE))
 def test_path_predicate(case):
     """K6 is chosen exactly where v lies on a CUDA device, bf16 autocast
-    is on for CUDA and autograd records nothing of the call (grad off,
-    ``inference_mode``, or neither v nor the weight needing a gradient),
-    at the shapes it takes and on float32 v; the WGAN-GP step (the
-    critic's weight needs a gradient), ShapeHD's fine-tuning (its input
-    does), ``--dtype float32`` (no autocast) and the CPU keep
+    is on for CUDA and autograd records no gradient for the weight (grad
+    off, ``inference_mode``, or a weight that needs none, as in
+    ShapeHD's fine-tuning, whose input does), at the shapes it takes and
+    on float32 v; the WGAN-GP step (the critic's weight needs a
+    gradient), ``--dtype float32`` (no autocast) and the CPU keep
     ``nn.Conv3d``.  CUDA tensors are fake here, the autocast and grad
     state real."""
     (device, autocast, mode, v_grad, w_grad, dtype, r), want = \
@@ -155,12 +156,13 @@ def test_wrapper_refuses(case, shape, wshape, dtype):
         w = torch.zeros(wshape, device=device)
         with pytest.raises(ValueError):
             ck.critic_stem(v, w)
-    assert ck.launches == {"critic_stem": 0}
+    assert ck.launches == {"critic_stem": 0, "critic_stem_backward": 0}
 
 
 def test_wrapper_refuses_a_recorded_gradient():
-    """K6 has no backward: with grad on and the weight needing one, the
-    wrapper raises rather than return an output autograd cannot follow."""
+    """K6 has no backward for its weight: with grad on and the weight
+    needing one, the wrapper raises rather than return an output whose
+    weight gradient autograd would miss."""
     with FakeTensorMode():
         v = torch.zeros(1, 1, 32, 32, 32, device="cuda")
         w = torch.nn.Parameter(torch.zeros(64, 1, 4, 4, 4, device="cuda"))
@@ -173,7 +175,8 @@ def test_critic_routes_its_first_layer_under_its_span(kernel, monkeypatch):
     """``VoxelDiscriminator`` (nf 64, 32³) computes its first layer and
     activation in ``stem``, under ``shapehd.critic.stem`` once a call:
     through K6 where the predicate holds (the kernel stood in here by its
-    GEMM formulation), else through ``Conv3D_0`` and ``F.leaky_relu``;
+    GEMM formulation), else through ``F.conv3d`` on ``Conv3D_0``'s weight
+    and ``F.leaky_relu``;
     the scores agree within 1e-5 of their scale, and the layers after the
     first are the same."""
     torch.manual_seed(3)

@@ -511,7 +511,7 @@ def test_critic_stem_matches_plain(device, b, r):
     with torch.inference_mode():
         out = stem.critic_stem(v, w)
         torch.cuda.synchronize()
-        assert stem.launches == {"critic_stem": 1}
+        assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 0}
         assert out.shape == (b, 64, r // 2, r // 2, r // 2)
         assert out.dtype == torch.bfloat16 and out.is_contiguous()
         with torch.autocast("cuda", dtype=torch.bfloat16):
@@ -559,10 +559,10 @@ def test_critic_score_on_k6_against_cudnn(device):
         with torch.inference_mode():
             k6, _ = _critic_last_input(net, v)
         torch.cuda.synchronize()
-        assert stem.launches == {"critic_stem": 1}
+        assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 0}
         ref, last = _critic_last_input(net, v)
         torch.cuda.synchronize()
-        assert stem.launches == {"critic_stem": 1}
+        assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 0}
     w = getattr(net, f"Conv3D_{net.n_mid}").Conv_0.weight.detach()
     with torch.no_grad():
         scale = torch.nn.functional.conv3d(
@@ -574,8 +574,8 @@ def test_critic_score_on_k6_against_cudnn(device):
 def test_critic_stem_launches_in_shapehd_predict_step(device, tmp_path):
     """One ``shapehd.ModelTest.predict_step`` in bf16 (64² photos -> 32³
     voxels, batch 2) launches K6 twice, once on each voxel grid (the
-    fine-tuned and the frozen MarrNet-2's); a critic call with grad on,
-    as in the WGAN-GP step or ShapeHD's fine-tuning, launches none."""
+    fine-tuned and the frozen MarrNet-2's); a critic call whose weights
+    train, as in the WGAN-GP step, launches none."""
     from genre_shapehd_tpu_torch.cli import options
     from genre_shapehd_tpu_torch.core.checkpoint import save_checkpoint
     from genre_shapehd_tpu_torch.core.convert import torch_to_jax
@@ -611,7 +611,7 @@ def test_critic_stem_launches_in_shapehd_predict_step(device, tmp_path):
     stem.reset_launches()
     pred = model.predict_step(batch)
     torch.cuda.synchronize()
-    assert stem.launches == {"critic_stem": 2}
+    assert stem.launches == {"critic_stem": 2, "critic_stem_backward": 0}
     assert all(bool(torch.isfinite(pred[k]).all())
                for k in ("is_real", "is_real_noft"))
     net_d = model.net_d.requires_grad_(True)
@@ -619,4 +619,4 @@ def test_critic_stem_launches_in_shapehd_predict_step(device, tmp_path):
     with torch.autocast("cuda", dtype=torch.bfloat16):
         net_d(v).sum().backward()
     torch.cuda.synchronize()
-    assert stem.launches == {"critic_stem": 2}
+    assert stem.launches == {"critic_stem": 2, "critic_stem_backward": 0}
