@@ -22,7 +22,13 @@ raising on failure:
     protocol's 1 x 1024), the critic's first layer K6 (the ShapeHD
     cell's 128 x 1 x 128³ float32 -> bfloat16, within one bf16 rounding
     of the float64 result and two steps of its plain version under
-    autocast, beside bf16 ``F.conv3d`` and ``F.leaky_relu``), plus
+    autocast, beside bf16 ``F.conv3d`` and ``F.leaky_relu``), its
+    backward's mask kernel (the fine-tuning step's 64 x 64 x 64³,
+    channels-last bf16 in, channels-first out, bit for bit the plain
+    mask's), its
+    middle layers K7 (the four shapes of one critic at batch 128,
+    channels-last, within the same bounds, beside cuDNN in NCDHW and in
+    channels_last_3d), plus
     float32 checks at smaller sizes with TF32 off; K1 and K5 also
     against ``F.grid_sample``, which computes each in one call; K1 on
     the float32 volume against the volume cast to bf16 (bit for bit),
@@ -89,13 +95,15 @@ raising on failure:
     8 steps each: marrnet2 --canon_sup, wgangp --canon_voxel (and with
     --gan_d_iter 2), shapehd --canon_sup --marrnet2 --gan --w_gan_loss
     1e-3, marrnet --canon_sup --marrnet1 <phase 7's stage 1> --marrnet2:
-    finite losses, K3's and K6's launches (K6 twice ShapeHD's eval
-    batch, once each way a ShapeHD step, its backward on K3; never in a
-    WGAN-GP step), which nets moved (the frozen ones bit for bit), step
-    time, peak memory; ``cli.test --net marrnet`` and ``--net
-    shapehd --marrnet1_file`` on phase 3's photos at batch 8 (K3 once /
-    twice a batch, K6 twice a ShapeHD batch: the kernels line's K6
-    launches, the .npz keys, the meshes at 0.9); the ShapeHD checkpoint's
+    finite losses, K3's, K6's and K7's launches (K6 twice ShapeHD's eval
+    batch, once each way a ShapeHD step, its backward on the mask kernel
+    and K3; K7 four
+    times each; neither in a WGAN-GP step), which nets moved (the frozen
+    ones bit for bit), step time, peak memory; ``cli.test --net marrnet``
+    and ``--net shapehd --marrnet1_file`` on phase 3's photos at batch 8
+    (K3 once / twice a batch, K6 twice and K7 eight times a ShapeHD
+    batch: the kernels line's K6 and K7 launches, the .npz keys, the
+    meshes at 0.9); the ShapeHD checkpoint's
     held-out score (K4 once an item, K6 twice a batch); a torch.profiler
     pass over one WGAN-GP and one ShapeHD step.
  9. GenRe's ShapeNet training path: a ShapeNet-layout tree written from
@@ -168,10 +176,10 @@ raising on failure:
     W_GAN_LOSS its default) beside finetune_marrnet.sh (MARRNET1 phase
     9's MarrNet-1, MARRNET2): each run's views (the view without canonical
     voxels left out), finite losses, the run directory its suffix names,
-    K3's launches by shape and K6's (``[launches]``, the last line of a
-    run; K6 once each way a ShapeHD step, its backward on K3 at the
-    generator's shape, twice ShapeHD's eval batch and twice a ShapeHD test
-    photo),
+    K3's launches by shape, K6's and K7's (``[launches]``, the last line
+    of a run; K6 once each way a ShapeHD step, its backward on the mask
+    kernel and K3 at the generator's shape, twice ShapeHD's eval batch and twice a ShapeHD test
+    photo; K7 four times each of those),
     step and data time, peak memory, which nets moved and the frozen
     ones bit for bit; then test_shapehd.sh, test_marrnet.sh and
     test_genre.sh at once on 8 of phase 3's photos (K3, and K1, K2 for
@@ -210,6 +218,11 @@ DEC6 = dict(b=8, cin=40, s=64)   # dec6 of the 3D U-Net at 128³, nf 20
 #: exchange pads to a multiple of 8 for TMA's 16-byte rows)
 DEC6_SLAB = dict(b=4, cin=40, s=64, zs=32, z=40)
 TRAIN = dict(batch=4, steps=8)   # cli.train: batch, steps of each kind
+#: K7 launches a call of the res-128 critic: Conv3D_1 .. Conv3D_4
+K7_PER_CRITIC = 4
+#: K7's shapes at the ShapeHD cell's batch 128: (Cin, input R, Cout)
+CRITIC_CONV_SHAPES = ((64, 64, 64), (64, 32, 128), (128, 16, 256),
+                      (256, 8, 512))
 SOURCES = {
     "render_stage1": "genre_shapehd_tpu_torch/csrc/render_kernel.cu",
     "render_stage2_scan": "genre_shapehd_tpu_torch/csrc/render_kernel.cu",
@@ -217,6 +230,8 @@ SOURCES = {
     "nn_min_dist": "genre_shapehd_tpu_torch/csrc/chamfer_kernel.cu",
     "render_stage2_samples": "genre_shapehd_tpu_torch/csrc/render_kernel.cu",
     "critic_stem": "genre_shapehd_tpu_torch/csrc/critic_stem_kernel.cu",
+    "critic_stem_mask": "genre_shapehd_tpu_torch/csrc/critic_stem_kernel.cu",
+    "critic_conv": "genre_shapehd_tpu_torch/csrc/critic_conv_kernel.cu",
 }
 #: the one PyTorch call that computes each kernel's function (library_ms)
 LIBRARY = {
@@ -226,6 +241,10 @@ LIBRARY = {
     "nn_min_dist": "torch.cdist, then min",
     "render_stage2_samples": "F.grid_sample, float32 c",
     "critic_stem": "F.conv3d, then F.leaky_relu, bf16",
+    "critic_stem_mask": "aten.leaky_relu_backward on channels-first g "
+                        "and y (no layout pass)",
+    "critic_conv": "F.conv3d, then F.leaky_relu, bf16, NCDHW (the parent's "
+                   "path; channels_last_3d beside it)",
 }
 REPLACES = {
     "render_stage1": "genre_shapehd_tpu/ops/pallas/render_kernel.py:170 "
@@ -241,6 +260,11 @@ REPLACES = {
                              ":312 (_s2_kernel via _s2_call :366, "
                              "pallas_call :373)",
     "critic_stem": "none: the JAX package leaves the critic's first layer "
+                   "(genre_shapehd_tpu/nn/voxel_nets.py:466, "
+                   "VoxelDiscriminator) to XLA",
+    "critic_stem_mask": "none: the JAX package leaves the critic's input "
+                        "gradient to XLA's autodiff",
+    "critic_conv": "none: the JAX package leaves the critic's middle layers "
                    "(genre_shapehd_tpu/nn/voxel_nets.py:466, "
                    "VoxelDiscriminator) to XLA",
 }
@@ -726,10 +750,11 @@ def critic_stem_row(device, b, seed):
         cst.reset_launches()
         out = cst.critic_stem(v, w)
         torch.cuda.synchronize()
-        check(cst.launches == {"critic_stem": 1, "critic_stem_backward": 0}
+        check(cst.launches == {"critic_stem": 1, "critic_stem_backward": 0,
+                               "critic_stem_mask": 0}
               and out.dtype == bf
               and out.shape == (b, 64, r // 2, r // 2, r // 2)
-              and out.is_contiguous(),
+              and out.is_contiguous(memory_format=torch.channels_last_3d),
               f"K6: launches {cst.launches}, {out.dtype} {out.shape}")
         ref = plain()
         d = (out.float() - ref.float()).abs()
@@ -779,6 +804,179 @@ def phase_critic_stem(device, flush):
         f"err vs plain {row['max_abs_err']:.3g}/{row['mean_abs_err']:.3g}")
     return ((row["max_abs_err"], row["mean_abs_err"]), ms["ms"],
             ms["plain_ms"], ms["library_ms"], bnd)
+
+
+def critic_stem_mask_row(device, b, s, seed):
+    """K6's backward mask (``critic_stem_kernel._mask_launch``) at (b, 64,
+    s³) on bf16 g and y channels-last, as K7's backward and K6 leave
+    them, against ``mask_plain`` on the same tensors bit for bit: both
+    keep g where y > 0 and round 0.2 g once to bf16 elsewhere (y holds
+    exact zeros too).  Returns the kernel's call, the plain version's
+    (``leaky_relu_backward`` on the channels-last tensors, then
+    ``.contiguous()``), the library call (``leaky_relu_backward`` on
+    channels-first g and y, which needs no layout pass) and the bound:
+    g and y read and the channels-first result written, once each."""
+    import torch
+    from genre_shapehd_tpu_torch.ops.cuda import critic_stem_kernel as cst
+    bf = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(seed)
+    # drawn NDHWC, so that the permuted views are channels-last
+    g, y = (torch.randn((b, s, s, s, 64), generator=gen, device=device)
+            .to(bf).permute(0, 4, 1, 2, 3) for _ in range(2))
+    y.masked_fill_(y.abs() < 0.05, 0.0)
+    with torch.inference_mode():
+        cst.reset_launches()
+        out = cst._mask_launch(g, y)
+        torch.cuda.synchronize()
+        check(cst.launches == {"critic_stem": 0, "critic_stem_backward": 0,
+                               "critic_stem_mask": 1}
+              and out.dtype == bf and out.shape == (b, 64, s, s, s)
+              and out.is_contiguous(),
+              f"mask: launches {cst.launches}, {out.dtype} {out.shape}")
+        ref = cst.mask_plain(g, y)
+        check(torch.equal(out, ref), f"mask at {(b, 64, s, s, s)}: "
+              f"{int((out != ref).sum())} elements differ from mask_plain")
+        del out, ref
+        gc, yc = g.contiguous(), y.contiguous()
+    return dict(
+        shape=[b, 64, s, s, s], max_abs_err=0.0, mean_abs_err=0.0,
+        call=lambda: cst._mask_launch(g, y),
+        plain=lambda: cst.mask_plain(g, y),
+        library=lambda: torch.ops.aten.leaky_relu_backward(gc, yc, 0.2,
+                                                           True),
+        bound=bound(3 * g.numel() * 2, 0.0))
+
+
+def phase_critic_stem_mask(device, flush):
+    """K6's backward mask at the fine-tuning step's (64, 64, 64³)
+    (:func:`critic_stem_mask_row`), timed beside its plain version, the
+    library call and its bound."""
+    import torch
+    row = critic_stem_mask_row(device, 64, 64, 23)
+    with torch.inference_mode():
+        ms = {key: time_ms(row.pop(fn), flush) for fn, key in (
+            ("call", "ms"), ("plain", "plain_ms"), ("library", "library_ms"))}
+    bnd = row.pop("bound")
+    log(f"[kernels] K6 backward mask {row['shape']} bf16 channels-last -> "
+        f"channels-first: {ms['ms']:.4f} ms, bound {bnd[0] * 1e3:.1f} us "
+        f"({bnd[1]}), {100 * bnd[0] / ms['ms']:.1f} % of it; plain "
+        f"(leaky_relu_backward, .contiguous()) {ms['plain_ms']:.4f} ms; "
+        f"library (leaky_relu_backward, channels-first) "
+        f"{ms['library_ms']:.4f} ms; equal to the plain mask bit for bit")
+    return ((row["max_abs_err"], row["mean_abs_err"]), ms["ms"],
+            ms["plain_ms"], ms["library_ms"], bnd)
+
+
+def critic_conv_row(device, b, cin, r, cout, seed):
+    """K7 at (b, cin, r³) -> cout, channels-last bf16 input, against
+    ``critic_conv_plain`` under bf16 autocast (cuDNN, NCDHW, then
+    ``F.leaky_relu``) and against the float64 result on the bf16-rounded
+    inputs, items 8 at a time, at ``tests/test_torch_port_critic_conv_cuda.py``'s
+    bounds: within one bf16 rounding (2^-8 relative) of the float64 result
+    and two steps (2^-6) of the plain version, with room for the order of
+    64 Cin float32 terms.  Returns the max and mean abs error against the
+    plain version, the kernel's call, the plain version's, the two library
+    calls (``F.conv3d`` and ``F.leaky_relu`` on bf16 NCDHW, and on
+    channels_last_3d input and weight) and the bound (operations at the
+    bf16 peak; x, the weight and the output once)."""
+    import torch
+    import torch.nn.functional as F
+    from genre_shapehd_tpu_torch.ops.cuda import critic_conv_kernel as ccv
+    bf, cl = torch.bfloat16, torch.channels_last_3d
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((b, cin, r, r, r), generator=g, device=device).to(bf)
+    xcl = x.contiguous(memory_format=cl)
+    w = torch.randn((cout, cin, 4, 4, 4), generator=g, device=device) * 0.05
+    wb = w.to(bf)
+    wcl = wb.contiguous(memory_format=cl)
+
+    def plain():
+        with torch.autocast("cuda", dtype=bf):
+            return ccv.critic_conv_plain(x, w)
+
+    o = r // 2
+    with torch.inference_mode():
+        ccv.reset_launches()
+        out = ccv.critic_conv(xcl, w)
+        torch.cuda.synchronize()
+        check(ccv.launches == {"critic_conv": 1, "critic_conv_backward": 0}
+              and out.dtype == bf and out.shape == (b, cout, o, o, o)
+              and out.is_contiguous(memory_format=cl),
+              f"K7: launches {ccv.launches}, {out.dtype} {out.shape}")
+        ref = plain()
+        d = (out.float() - ref.float()).abs()
+        err = (float(d.max()), float(d.mean()))
+        del d
+        worst = [-1.0, -1.0]
+        for i in range(0, b, 8):
+            x64, w64 = x[i:i + 8].double(), wb.double()
+            exact = F.leaky_relu(F.conv3d(x64, w64, None, 2, 1), 0.2)
+            slack = 64 * cin * 2.0 ** -24 * F.conv3d(
+                x64.abs(), w64.abs(), None, 2, 1)
+            got, pl = out[i:i + 8].double(), ref[i:i + 8].double()
+            e = (got - exact).abs() - (2.0 ** -8 * exact.abs() + slack)
+            worst[0] = max(worst[0], float(e.max()))
+            e = (got - pl).abs() - (2.0 ** -6 * torch.maximum(
+                got.abs(), pl.abs()) + 2 * slack)
+            worst[1] = max(worst[1], float(e.max()))
+            del x64, exact, slack, got, pl, e
+        check(worst[0] <= 0 and worst[1] <= 0,
+              f"K7 at {(b, cin, r, cout)}: beyond its bound by {worst[0]} "
+              f"vs float64, {worst[1]} vs plain")
+        del out, ref
+    n_out = b * cout * o ** 3
+    return dict(
+        shape=[b, cin, r, r, r], cout=cout, max_abs_err=err[0],
+        mean_abs_err=err[1],
+        call=lambda: ccv.critic_conv(xcl, w), plain=plain,
+        library=lambda: F.leaky_relu(F.conv3d(x, wb, None, 2, 1), 0.2),
+        library_cl=lambda: F.leaky_relu(F.conv3d(xcl, wcl, None, 2, 1), 0.2),
+        bound=bound(x.numel() * 2 + wb.numel() * 2 + n_out * 2,
+                    2.0 * 64 * cin * n_out, H100_BF16_FLOPS))
+
+
+def phase_critic_conv(device, flush):
+    """K7 at the ShapeHD cell's four shapes, batch 128
+    (:func:`critic_conv_row`), each timed beside its plain version, the
+    two library calls and its bound, with no gradient recorded.  Returns
+    the kernels table's entry for one critic's four calls (errors the
+    worst, times and bounds summed) and the rows."""
+    import torch
+    rows, total = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                           library_cl_ms=0.0, bound=0.0, nbytes=0.0)
+    errs = [0.0, 0.0]
+    for cin, r, cout in CRITIC_CONV_SHAPES:
+        row = critic_conv_row(device, 128, cin, r, cout, 19 + r)
+        with torch.inference_mode():
+            ms = {key: time_ms(row.pop(fn), flush) for fn, key in (
+                ("call", "ms"), ("plain", "plain_ms"),
+                ("library", "library_ms"), ("library_cl", "library_cl_ms"))}
+        bnd = row.pop("bound")
+        row.update(ms, bound_ms=bnd[0], bound_by=bnd[1],
+                   bound_share=bnd[0] / ms["ms"])
+        for k in ms:
+            total[k] += ms[k]
+        total["bound"] += bnd[0]
+        total["nbytes"] += bnd[2]
+        errs = [max(errs[0], row["max_abs_err"]),
+                max(errs[1], row["mean_abs_err"])]
+        log(f"[kernels] K7 critic_conv {row['shape']} -> {cout} bf16, "
+            f"channels-last: {ms['ms']:.4f} ms, bound {bnd[0] * 1e3:.1f} us "
+            f"({bnd[1]}), {100 * bnd[0] / ms['ms']:.1f} % of it; plain "
+            f"(autocast, cuDNN NCDHW, F.leaky_relu) {ms['plain_ms']:.4f} ms; "
+            f"library bf16 F.conv3d + F.leaky_relu NCDHW "
+            f"{ms['library_ms']:.4f} ms, channels_last_3d "
+            f"{ms['library_cl_ms']:.4f} ms; max/mean "
+            f"abs err vs plain {row['max_abs_err']:.3g}/"
+            f"{row['mean_abs_err']:.3g}")
+        rows.append(row)
+    log(f"[kernels] K7 critic_conv, one critic's four calls at batch 128: "
+        f"{total['ms']:.4f} ms, bound {total['bound']:.4f} ms, "
+        f"{100 * total['bound'] / total['ms']:.1f} % of it; plain "
+        f"{total['plain_ms']:.4f}, library NCDHW {total['library_ms']:.4f}, "
+        f"channels_last_3d {total['library_cl_ms']:.4f} ms")
+    return (tuple(errs), total["ms"], total["plain_ms"], total["library_ms"],
+            (total["bound"], "operations", total["nbytes"]), rows)
 
 
 def _cdist_min(x1, x2):
@@ -2167,6 +2365,7 @@ def phase_family(device, work, marrnet1_ckpt):
     from genre_shapehd_tpu_torch.data.loader import DataLoader
     from genre_shapehd_tpu_torch.models.base import default_opt
     from genre_shapehd_tpu_torch.ops.cuda import chamfer_kernel as ck
+    from genre_shapehd_tpu_torch.ops.cuda import critic_conv_kernel as ccv
     from genre_shapehd_tpu_torch.ops.cuda import critic_stem_kernel as cst
     from genre_shapehd_tpu_torch.ops.cuda import render_kernel as rk
     from genre_shapehd_tpu_torch.ops.cuda import subpixel_kernel as sk
@@ -2195,7 +2394,8 @@ def phase_family(device, work, marrnet1_ckpt):
     # frozen critic once each way a step, its backward on K3 (a second K3
     # launch a step), and forward twice an eval batch (both grids, no
     # gradient); WGAN-GP's critic trains in a step and reads bf16 G(z) in
-    # the eval batch, so it keeps nn.Conv3d
+    # the eval batch, so it keeps nn.Conv3d.  K7 runs the frozen critic's
+    # middle layers wherever K6 runs its first, K7_PER_CRITIC a call
     runs_spec = (
         ("marrnet2", ["--net", "marrnet2", "--canon_sup", "--lr", "1e-3"],
          dA, "loss", steps + 1, (0, 0)),
@@ -2217,6 +2417,7 @@ def phase_family(device, work, marrnet1_ckpt):
         sk.reset_launches()
         ck.reset_launches()
         cst.reset_launches()
+        ccv.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated() / 2 ** 30
         t0 = time.perf_counter()
@@ -2224,12 +2425,14 @@ def phase_family(device, work, marrnet1_ckpt):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {**rk.launches, **sk.launches, **ck.launches,
-                    **cst.launches}
+                    **cst.launches, **ccv.launches}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         check(rc == 0, f"cli.train {name} returned {rc}")
         want = {k: 0 for k in launches}
         want.update(deconv_final=k3, critic_stem=k6,
-                    critic_stem_backward=k6b)
+                    critic_stem_backward=k6b, critic_stem_mask=k6b,
+                    critic_conv=K7_PER_CRITIC * k6,
+                    critic_conv_backward=K7_PER_CRITIC * k6b)
         check(launches == want, f"{name}: launches {launches} != {want}")
         rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
         check(len(rows) == steps, f"{name}: {len(rows)} logged steps")
@@ -2322,6 +2525,7 @@ def phase_family(device, work, marrnet1_ckpt):
         out_dir = os.path.join(work, f"test_{net}")
         sk.reset_launches()
         cst.reset_launches()
+        ccv.reset_launches()
         t0 = time.perf_counter()
         rc = cli_test.main(["--net", net, "--net_file", ckpt] + extra + [
             "--input_rgb", os.path.join(photos, "*_rgb.png"),
@@ -2331,10 +2535,13 @@ def phase_family(device, work, marrnet1_ckpt):
             vis_param, "--device", "cuda"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {**sk.launches, **cst.launches}
+        launches = {**sk.launches, **cst.launches, **ccv.launches}
         check(rc == 0 and launches == {"deconv_final": 2 * k3,
                                        "critic_stem": 2 * k6,
-                                       "critic_stem_backward": 0},
+                                       "critic_stem_backward": 0,
+                                       "critic_stem_mask": 0,
+                                       "critic_conv": 2 * K7_PER_CRITIC * k6,
+                                       "critic_conv_backward": 0},
               f"cli.test {net}: rc {rc}, launches {launches}")
         keys = {"rgb_path", "rgb", "pred_silhou", "pred_normal",
                 "pred_depth", "pred_voxel"} | (
@@ -2373,13 +2580,14 @@ def phase_family(device, work, marrnet1_ckpt):
     sk.reset_launches()
     ck.reset_launches()
     cst.reset_launches()
+    ccv.reset_launches()
     t0 = time.perf_counter()
     res, _ = eval_quality(model, DataLoader(vali, b, 4), model.voxel_key,
                           tag="family")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {**rk.launches, **sk.launches, **ck.launches,
-                **cst.launches}
+                **cst.launches, **ccv.launches}
     n = len(vali)
     check(res["n_items"] == n == 16 and res["chamfer_n"] == 16
           and 0.0 <= res["iou_best"] <= 1.0
@@ -2390,7 +2598,9 @@ def phase_family(device, work, marrnet1_ckpt):
                        "render_stage2_samples": 0,
                        "deconv_final": 2 * n // b, "nn_min_dist": n,
                        "critic_stem": 2 * n // b,
-                       "critic_stem_backward": 0},
+                       "critic_stem_backward": 0, "critic_stem_mask": 0,
+                       "critic_conv": 2 * K7_PER_CRITIC * n // b,
+                       "critic_conv_backward": 0},
           f"scoring launches {launches}")
     runs["score"] = dict(seconds=seconds, launches=launches, **res)
     log(f"[family] eval_quality of the ShapeHD checkpoint on {n} held-out "
@@ -2863,7 +3073,10 @@ def phase_scripts(work, tree, marrnet1_ckpt, genre_ckpt, photos):
         # and reads bf16 G(z) in the eval batch, so it keeps nn.Conv3d (as
         # phase 8)
         if name == "shapehd":
-            want.update(critic_stem=steps + 2, critic_stem_backward=steps)
+            want.update(critic_stem=steps + 2, critic_stem_backward=steps,
+                        critic_stem_mask=steps,
+                        critic_conv=K7_PER_CRITIC * (steps + 2),
+                        critic_conv_backward=K7_PER_CRITIC * steps)
         check(launches == want and rep["deconv_final_shapes"] == k3,
               f"{name}: launches {rep}, want {want} at {k3}")
         rows = _csv_rows(os.path.join(d, "batch_loss.csv"))
@@ -2945,7 +3158,8 @@ def phase_scripts(work, tree, marrnet1_ckpt, genre_ckpt, photos):
     tests = (
         ("test_shapehd.sh", "shapehd", {"NET_FILE": ck(dC),
                                         "MARRNET1_FILE": marrnet1_ckpt},
-         {K3_DEC1: 2 * n}, {"critic_stem": 2 * n},
+         {K3_DEC1: 2 * n}, {"critic_stem": 2 * n,
+                            "critic_conv": 2 * K7_PER_CRITIC * n},
          "11_pred_voxel_noft.obj"),
         ("test_marrnet.sh", "marrnet", {"NET_FILE": ck(dD)},
          {K3_DEC1: n}, {}, "12_pred_voxel.obj"),
@@ -3699,7 +3913,8 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
         check(rc == 0 and launches == {
             "render_stage1": k12, "render_stage2_scan": k12,
             "render_stage2_samples": 0, "deconv_final": k3,
-            "critic_stem": k6, "critic_stem_backward": 0},
+            "critic_stem": k6, "critic_stem_backward": 0,
+            "critic_stem_mask": 0},
             f"[refckpt] cli.test {tag}: rc {rc}, launches {launches}")
         with np.load(os.path.join(out_dir, "batch0000.npz")) as z:
             out = {k: z[k] for k in z.files}
@@ -3757,7 +3972,8 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
         launches = {**rk.launches, **sk.launches, **cst.launches}
         want = {"render_stage1": 3, "render_stage2_scan": 2,
                 "render_stage2_samples": 1, "deconv_final": 2,
-                "critic_stem": 0, "critic_stem_backward": 0}
+                "critic_stem": 0, "critic_stem_backward": 0,
+                "critic_stem_mask": 0}
         check(rc == 0 and launches == want, f"[refckpt] cli.train {tag}: "
               f"rc {rc}, launches {launches} != {want}")
         rows = _csv_rows(os.path.join(run_dir, "batch_loss.csv"))
@@ -3794,7 +4010,8 @@ def phase_reference_checkpoints(device, work, genre_ckpt, photos):
                 + sum(r[k] for r in train_launches.values())
                 for k in ("render_stage1", "render_stage2_scan",
                           "render_stage2_samples", "deconv_final",
-                          "critic_stem", "critic_stem_backward")}
+                          "critic_stem", "critic_stem_backward",
+                          "critic_stem_mask")}
     log(f"[refckpt] negative control: the step from the file's moments "
         f"moved each weight {moved / lr:.3f} lr on average (mean over "
         f"tensors of the mean |change|); from the same file with zeroed "
@@ -3891,6 +4108,12 @@ def main() -> int:
     k6 = "critic_stem"
     errs[k6], ms[k6], plain_ms[k6], library_ms[k6], bounds[k6] = \
         phase_critic_stem(device, flush)
+    k6m = "critic_stem_mask"
+    errs[k6m], ms[k6m], plain_ms[k6m], library_ms[k6m], bounds[k6m] = \
+        phase_critic_stem_mask(device, flush)
+    k7 = "critic_conv"
+    errs[k7], ms[k7], plain_ms[k7], library_ms[k7], bounds[k7], k7_rows = \
+        phase_critic_conv(device, flush)
     f32_rows = phase_float32(device, flush)
     family_k3 = phase_family_kernels(device, flush)
     del flush
@@ -3914,8 +4137,11 @@ def main() -> int:
     phase_train_profile(device, runs)
     mark("7 staged")
     family = phase_family(device, work, marrnet1_ckpt)
-    # K6 runs on ShapeHD's serving path: its launches are cli.test's
+    # K6 and K7 run on ShapeHD's serving path: their launches are cli.test's
     launches[k6] = family["test_shapehd"]["launches"][k6]
+    launches[k7] = family["test_shapehd"]["launches"][k7]
+    # the mask runs in the fine-tuning step's backward: ShapeHD's cli.train
+    launches[k6m] = family["shapehd"]["launches"][k6m]
     phase_family_profile(device, family)
     mark("8 family")
     shapenet = phase_shapenet(work)
@@ -3938,7 +4164,8 @@ def main() -> int:
     mark("12 reference checkpoints")
 
     kernels = []
-    for name in ("render_stage1", "render_stage2_scan", k3, k4, k5, k6):
+    for name in ("render_stage1", "render_stage2_scan", k3, k4, k5, k6, k6m,
+                 k7):
         bms, by, nbytes = bounds[name]
         check(launches[name] > 0, f"{name} was not launched on its path")
         kernels.append({
@@ -3983,6 +4210,8 @@ def main() -> int:
     # K5 is timed at the training batch of 4
     by_name[k5].update(timed_shape=[TRAIN["batch"], MAIN["r"], MAIN["r"],
                                     MAIN["z"]])
+    # K7 is timed at each of one critic's four shapes, batch 128
+    by_name[k7].update(rows=k7_rows)
     by_name[k3].update(hmma_in_sass=sum(hmma.values()),
                        marrnet_shapehd=family_k3, sp_slab=k3_slab,
                        sp_slab_launches=sp["k3_spans"],

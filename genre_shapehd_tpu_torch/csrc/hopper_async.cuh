@@ -1,9 +1,9 @@
 // Asynchronous-copy helpers for Hopper (sm_90a), one copy for the port's
 // kernels: shared-memory addresses, mbarriers and TMA tensor copies (K3,
-// deconv_final_kernel.cu), and the 4-byte cp.async copies that stage the
-// renderer's slabs (K2, K5, render_kernel.cu).  The mbarrier and TMA half
-// has one user, K3: the renderer stages its slabs at a padded row stride,
-// which a TMA copy of a contiguous slab cannot write, so it takes
+// deconv_final_kernel.cu; K7, critic_conv_kernel.cu), and the 4-byte
+// cp.async copies that stage the renderer's slabs (K2, K5,
+// render_kernel.cu).  The renderer stages its slabs at a padded row
+// stride, which a TMA copy of a contiguous slab cannot write, so it takes
 // smem_addr and the cp.async half only.
 #pragma once
 
@@ -34,6 +34,12 @@ static __device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
                ::"r"(bar), "r"(bytes) : "memory");
 }
 
+// Arrives on `bar` (one of its expected arrivals).
+static __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
 // Spins until the phase of `bar` with parity `parity` has completed.
 static __device__ __forceinline__ void mbar_wait(uint32_t bar,
                                                  uint32_t parity) {
@@ -49,6 +55,20 @@ static __device__ __forceinline__ void mbar_wait(uint32_t bar,
 }
 
 // ------------------------------------------------------------------- TMA
+// One box of the 2-D tensor map `map` at coordinates (c0, c1), innermost
+// first, into shared memory at `dst`; completes on mbarrier `bar`.
+static __device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                                   const CUtensorMap* map,
+                                                   int c0, int c1,
+                                                   uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+        "r"(bar)
+      : "memory");
+}
+
 // One box of the 5-D tensor map `map` at coordinates (c0 .. c4), innermost
 // first, into shared memory at `dst`; completes on mbarrier `bar`.
 static __device__ __forceinline__ void tma_load_5d(uint32_t dst,

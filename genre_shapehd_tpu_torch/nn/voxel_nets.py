@@ -21,12 +21,13 @@ planes, those of one process.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda import critic_stem_kernel
+from ..ops.cuda import critic_conv_kernel, critic_stem_kernel
 from ..ops.cuda.subpixel_kernel import deconv_final
 from ..parallel import mesh
 from ..utils import trace
@@ -172,6 +173,21 @@ class VoxelGenerator(nn.Module):
         return torch.sigmoid(getattr(self, f"Deconv3D_{self.n_mid}")(x)[:, 0])
 
 
+class CriticHead(Conv3D):
+    """The critic's last layer, a k4 VALID convolution from 4³ to one
+    score with no bias.  On a channels-last input (K7's output) it is one
+    product of the flattened NDHWC input with the weight in the same
+    order, with no layout pass; on a channels-first one ``nn.Conv3d``,
+    so that the plain critic's scores stay bit for bit as they were."""
+
+    def forward(self, x, slab: bool = False):
+        if slab or not x.is_contiguous(memory_format=torch.channels_last_3d):
+            return super().forward(x, slab)
+        flat = self.Conv_0.weight.permute(0, 2, 3, 4, 1).reshape(-1)
+        out = x.permute(0, 2, 3, 4, 1).reshape(x.shape[0], -1) @ flat
+        return out.reshape(x.shape[0], 1, 1, 1, 1)
+
+
 class VoxelDiscriminator(nn.Module):
     """(N, res, res, res) -> (N,) Wasserstein critic scores: k4 s2 p1
     convolutions with LeakyReLU(0.2), no norm and no bias (at res 128 an
@@ -182,9 +198,15 @@ class VoxelDiscriminator(nn.Module):
     autocast with the layer's weight taking no gradient, as in inference
     and in ShapeHD's fine-tuning, whose frozen critic passes the
     gradient to its input through K6's backward
-    (``ops/cuda/critic_stem_kernel.py``).  Either way the layer runs as
-    the stage ``shapehd.critic.stem``, its backward timed under
-    ``shapehd.critic.stem.backward`` while a profiler records."""
+    (``ops/cuda/critic_stem_kernel.py``).  Where K6 runs, the middle
+    convolutions run K7 where ``critic_conv_kernel.uses_kernel`` says so
+    (channels in multiples of 64), channels-last from K6's output to the
+    last layer (:class:`CriticHead`) with no layout pass, the frozen
+    critic's input gradient through K7's backward
+    (``ops/cuda/critic_conv_kernel.py``).  Either way the first layer runs
+    as the stage ``shapehd.critic.stem`` and the rest as
+    ``shapehd.critic.body``, their backward timed under ``.backward``
+    while a profiler records."""
 
     WIDTHS = {128: (1, 1, 2, 4, 8), 64: (1, 2, 4, 8), 32: (1, 2, 4)}
 
@@ -197,8 +219,8 @@ class VoxelDiscriminator(nn.Module):
             setattr(self, f"Conv3D_{i}", Conv3D(cin, w, 4, 2, 1,
                                                 use_bias=False))
             cin = w
-        setattr(self, f"Conv3D_{self.n_mid}", Conv3D(cin, 1, 4, 1, 0,
-                                                     use_bias=False))
+        setattr(self, f"Conv3D_{self.n_mid}", CriticHead(cin, 1, 4, 1, 0,
+                                                         use_bias=False))
 
     @staticmethod
     def stem(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -208,11 +230,34 @@ class VoxelDiscriminator(nn.Module):
             return critic_stem_kernel.critic_stem(x, weight)
         return F.leaky_relu(F.conv3d(x, weight, None, 2, 1), 0.2)
 
+    @staticmethod
+    def middle(x: torch.Tensor, weight: torch.Tensor,
+               chain: bool) -> torch.Tensor:
+        """LeakyReLU(0.2) of a middle convolution (k4 s2 p1, no bias): K7
+        on K6's channels-last chain (``chain``) where it takes the layer,
+        else the plain layer."""
+        if chain and critic_conv_kernel.uses_kernel(x, weight):
+            return critic_conv_kernel.critic_conv(x, weight)
+        return F.leaky_relu(F.conv3d(x, weight, None, 2, 1), 0.2)
+
+    def body(self, chain: bool, x: torch.Tensor,
+             *weights: torch.Tensor) -> torch.Tensor:
+        """The middle layers on ``weights``, then the last layer (its
+        module, so that its hooks see its input)."""
+        for w in weights:
+            x = self.middle(x, w, chain)
+        return getattr(self, f"Conv3D_{self.n_mid}")(x)
+
     def forward(self, v: torch.Tensor) -> torch.Tensor:
-        # the weight is a stage input too, so that the backward span of a
-        # critic whose weight trains closes once its gradient is out
-        x = trace.stage(trace.CRITIC_STEM, self.stem, v[:, None],
-                        self.Conv3D_0.Conv_0.weight)
-        for i in range(1, self.n_mid):
-            x = F.leaky_relu(getattr(self, f"Conv3D_{i}")(x), 0.2)
-        return getattr(self, f"Conv3D_{self.n_mid}")(x).reshape(v.shape[0])
+        w0 = self.Conv3D_0.Conv_0.weight
+        # K7 continues K6's chain, with K6's guard: a critic whose weights
+        # train, or that scores bf16 voxels (WGAN-GP's G(z)), keeps the
+        # plain layers throughout
+        chain = critic_stem_kernel.uses_kernel(v[:, None], w0)
+        # the weights are stage inputs too, so that the backward span of a
+        # critic whose weights train closes once their gradients are out
+        x = trace.stage(trace.CRITIC_STEM, self.stem, v[:, None], w0)
+        weights = [getattr(self, f"Conv3D_{i}").Conv_0.weight
+                   for i in range(1, self.n_mid)]
+        return trace.stage(trace.CRITIC_BODY, partial(self.body, chain), x,
+                           *weights).reshape(v.shape[0])

@@ -8,10 +8,11 @@ import json
 def launch_counts() -> dict:
     """Every hand-written kernel's launches since the process started (or
     their counts were last reset)."""
-    from . import (chamfer_kernel, critic_stem_kernel, render_kernel,
-                   subpixel_kernel)
+    from . import (chamfer_kernel, critic_conv_kernel, critic_stem_kernel,
+                   render_kernel, subpixel_kernel)
     return {**render_kernel.launches, **subpixel_kernel.launches,
-            **chamfer_kernel.launches, **critic_stem_kernel.launches}
+            **chamfer_kernel.launches, **critic_stem_kernel.launches,
+            **critic_conv_kernel.launches}
 
 
 def launch_line(device) -> str:

@@ -5,8 +5,10 @@ plain version, its GEMM formulation and launch count.
      ``leaky_relu(conv3d(v, W, stride 2, padding 1), 0.2)`` for one input
      channel and 64 output channels, k4, no bias: v (B, 1, R, R, R)
      float32 (the critic's probabilities), R in {32, 64, 128} -> (B, 64,
-     R/2, R/2, R/2) bfloat16.  It replaces no Pallas kernel: the JAX
-     package leaves the layer to XLA.  On the card cuDNN runs the layer
+     R/2, R/2, R/2) bfloat16 in ``channels_last_3d``, the layout the
+     critic's next layers read (K7, ``critic_conv_kernel.py``).  It
+     replaces no Pallas kernel: the JAX package leaves the layer to
+     XLA.  On the card cuDNN runs the layer
      through its channels-last kernel with layout conversions around it,
      and the cast and the activation as passes of their own; the kernel
      reads v once and writes the activation once.
@@ -27,13 +29,17 @@ up to one bfloat16 rounding of the output.
 The backward (:class:`_CriticStem`) returns v's gradient alone,
 :func:`input_grad`: the activation's slope applied to the output's
 gradient g by the sign of the saved output y (the sign of the
-pre-activation, the slope being positive), then the convolution's
-transpose, ``conv_transpose3d(., W, stride 2, padding 1)`` from 64
+pre-activation, the slope being positive), written channels-first,
+then the convolution's transpose, ``conv_transpose3d(., W, stride 2,
+padding 1)`` from 64
 channels to one, which is the function K3 computes
 (``subpixel_kernel.py``; the stem's weight (64, 1, 4, 4, 4) is K3's
 layout), on bfloat16 with a zero bias, then the float32 upcast that
 autocast's cast of v gives its gradient.  The mask is
 ``F.leaky_relu``'s own backward, one pass that rounds 0.2 g to bfloat16;
+on the card it is a kernel of K6's source (``critic_stem_mask``) that
+reads g and y channels-last, as K7's backward and K6 leave them, and
+writes the channels-first tensor K3 reads, so that no layout pass runs.
 K3 sums its taps in float32 and rounds once, where cuDNN's transposed
 convolution may round more often.
 
@@ -61,8 +67,10 @@ RESOLUTIONS = (32, 64, 128)
 COUT = 64
 SLOPE = 0.2
 
-#: launches of the kernel since the last :func:`reset_launches`
-launches: Dict[str, int] = {"critic_stem": 0, "critic_stem_backward": 0}
+#: launches since the last :func:`reset_launches`: K6, its backward (the
+#: mask and K3 together) and the mask kernel alone
+launches: Dict[str, int] = {"critic_stem": 0, "critic_stem_backward": 0,
+                            "critic_stem_mask": 0}
 
 _lib = None
 
@@ -93,15 +101,23 @@ def critic_stem_gemm(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return out.transpose(1, 2).reshape(bsz, weight.shape[0], o, o, o)
 
 
+def mask_plain(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``g`` where y > 0, ``SLOPE * g`` elsewhere (the activation's
+    backward on its own output), channels-first."""
+    return torch.ops.aten.leaky_relu_backward(g, y, SLOPE, True).contiguous()
+
+
 def input_grad(g: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
-               deconv=subpixel_kernel.deconv_final_plain) -> torch.Tensor:
+               deconv=subpixel_kernel.deconv_final_plain,
+               mask=mask_plain) -> torch.Tensor:
     """v's gradient from the gradient ``g`` of the stem's output ``y``
-    (both (B, 64, S, S, S)): ``g`` where y > 0, ``SLOPE * g`` elsewhere
-    (the activation's backward on its own output, one elementwise pass),
-    then ``deconv(., weight, 0)``, ``conv_transpose3d`` with stride 2 and
-    padding 1 to (B, 1, 2S, 2S, 2S), in float32.  ``deconv`` is K3's
-    function: its launch on the card, its plain version in the tests."""
-    masked = torch.ops.aten.leaky_relu_backward(g, y, SLOPE, True)
+    (both (B, 64, S, S, S)): ``mask(g, y)``, ``g`` where y > 0, ``SLOPE *
+    g`` elsewhere, channels-first (one elementwise pass), then
+    ``deconv(., weight, 0)``, ``conv_transpose3d`` with stride 2 and
+    padding 1 to (B, 1, 2S, 2S, 2S), in float32.  ``mask`` and ``deconv``
+    are the mask kernel's and K3's launches on the card, their plain
+    versions in the tests."""
+    masked = mask(g, y)
     return deconv(masked, weight, weight.new_zeros(1)).float()
 
 
@@ -131,16 +147,18 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.critic_stem.argtypes = [p, p, p, i, i, p]
         lib.critic_stem.restype = i
+        lib.critic_stem_mask.argtypes = [p, p, p, i, i, p]
+        lib.critic_stem_mask.restype = i
         _lib = lib
     return _lib
 
 
 def _launch(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """K6's launch: (B, 64, R/2, R/2, R/2) bfloat16."""
+    """K6's launch: (B, 64, R/2, R/2, R/2) bfloat16, channels-last."""
     v = v.contiguous()
     w = weight.float().reshape(COUT, 64).contiguous()
     bsz, r = v.shape[0], v.shape[2]
-    out = torch.empty((bsz, COUT, r // 2, r // 2, r // 2),
+    out = torch.empty((bsz, r // 2, r // 2, r // 2, COUT),
                       dtype=torch.bfloat16, device=v.device)
     lib = _library()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())          # noqa: E731
@@ -151,12 +169,32 @@ def _launch(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         launches["critic_stem"] += 1
     if err != 0:
         raise RuntimeError(f"critic_stem: CUDA error {err} at launch")
+    return out.permute(0, 4, 1, 2, 3)
+
+
+def _mask_launch(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The backward's mask on the card: g and y (B, 64, S, S, S) bf16,
+    read channels-last -> (B, 64, S, S, S) bf16, contiguous."""
+    cl = torch.channels_last_3d
+    g, y = g.contiguous(memory_format=cl), y.contiguous(memory_format=cl)
+    bsz, s = g.shape[0], g.shape[2]
+    out = torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
+    lib = _library()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())          # noqa: E731
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.critic_stem_mask(ptr(g), ptr(y), ptr(out), bsz, s,
+                                   ctypes.c_void_p(stream))
+        launches["critic_stem_mask"] += 1
+    if err != 0:
+        raise RuntimeError(f"critic_stem_mask: CUDA error {err} at launch")
     return out
 
 
 class _CriticStem(torch.autograd.Function):
     """Forward: K6, its output saved.  Backward: v's gradient by
-    :func:`input_grad` with K3's launch (the weight takes none)."""
+    :func:`input_grad` with the mask kernel and K3's launch on the card
+    (the weight takes none)."""
 
     @staticmethod
     def forward(ctx, v, weight):
@@ -168,8 +206,9 @@ class _CriticStem(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         y, weight = ctx.saved_tensors
+        mask = _mask_launch if g.is_cuda else mask_plain
         gv = input_grad(g.to(torch.bfloat16), y, weight.float(),
-                        subpixel_kernel._launch)
+                        subpixel_kernel._launch, mask)
         launches["critic_stem_backward"] += 1
         return gv, None
 

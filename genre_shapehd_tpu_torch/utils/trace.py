@@ -5,8 +5,9 @@ Names follow ``<model>.<stage>[.backward]``: ``genre.net1`` is the
 forward of GenRe's first U-ResNet, ``genre.net1.backward`` its backward
 on autograd's thread; a stage inside a stage adds a level
 (``genre.refine.decoder``), and so does a layer inside a stage
-(``shapehd.critic.stem``, a stage of its own opened by the critic
-wherever it runs, a WGAN-GP step's included, with its backward span).
+(``shapehd.critic.stem`` and ``shapehd.critic.body``, stages of their
+own opened by the critic wherever it runs, a WGAN-GP step's included,
+with their backward spans).
 The steps' phases (``genre.train_step``, ``genre.zero_grad``,
 ``genre.loss``, ``genre.backward``, ``genre.optimizer``) keep GenRe's
 prefix in every model that steps
@@ -58,9 +59,13 @@ NET_NOFT = "shapehd.net_noft"
 # (``nn/voxel_nets.py::VoxelDiscriminator``; K6 or ``F.conv3d``), its
 # backward under ``shapehd.critic.stem.backward``
 CRITIC_STEM = "shapehd.critic.stem"
+# the critic's layers after the stem: its middle convolutions and the
+# last one to the score (K7 and a product, or ``F.conv3d``), their
+# backward under ``shapehd.critic.body.backward``
+CRITIC_BODY = "shapehd.critic.body"
 STAGES = (NET1, CAMERA_BP, RENDER, NET2, SPHERICAL_BP, REFINE,
           REFINE_ENCODER, REFINE_DECODER, MARRNET1, MARRNET2, CRITIC,
-          NET_NOFT, CRITIC_STEM)
+          NET_NOFT, CRITIC_STEM, CRITIC_BODY)
 #: the suffix of a stage's backward span
 BACKWARD_SUFFIX = ".backward"
 

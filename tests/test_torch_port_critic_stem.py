@@ -156,7 +156,8 @@ def test_wrapper_refuses(case, shape, wshape, dtype):
         w = torch.zeros(wshape, device=device)
         with pytest.raises(ValueError):
             ck.critic_stem(v, w)
-    assert ck.launches == {"critic_stem": 0, "critic_stem_backward": 0}
+    assert ck.launches == {"critic_stem": 0, "critic_stem_backward": 0,
+                           "critic_stem_mask": 0}
 
 
 def test_wrapper_refuses_a_recorded_gradient():

@@ -2,7 +2,8 @@
 gradient (the activation's slope by the sign of K6's output, then K3's
 transposed convolution, then float32) at the fine-tuning cell's (64, 1,
 128³) against float64 autograd of ``F.conv3d`` and ``F.leaky_relu`` on the
-bf16-rounded v and weight; and the launches of K6 and of its backward in
+bf16-rounded v and weight; the backward's mask kernel against
+``mask_plain`` bit for bit at each S it is built for; and the launches of K6 and of its backward in
 a ShapeHD fine-tuning step (one each) and in a WGAN-GP step (none).
 Skipped where ``torch.cuda.is_available()`` is false.
 
@@ -54,7 +55,8 @@ def test_critic_stem_backward_matches_autograd(device):
     gy = torch.randn(y.shape, generator=g, device=device).to(torch.bfloat16)
     (got,) = torch.autograd.grad(y, v, gy)
     torch.cuda.synchronize()
-    assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 1}
+    assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 1,
+                             "critic_stem_mask": 1}
     assert sk.cube_launches == {(64, 64, 64): 1}
     assert got.dtype == torch.float32 and got.shape == v.shape
     vb, wb = (t.detach().to(torch.bfloat16).double() for t in (v, w))
@@ -76,6 +78,25 @@ def test_critic_stem_backward_matches_autograd(device):
                                                0.2), vv, g64)
     err = float((got.double() - want).norm() / want.norm())
     assert err <= 2.0 ** -7, err
+
+
+@pytest.mark.parametrize("s", [16, 32, 64])
+def test_mask_kernel_equals_plain_mask(device, s):
+    """The mask kernel on bf16 g and y channels-last (as K7's backward and
+    K6 leave them), y with exact zeros, equals ``mask_plain`` bit for bit:
+    g where y > 0, 0.2 g rounded once to bf16 elsewhere, written
+    channels-first; one launch counted."""
+    g = torch.Generator(device).manual_seed(s)
+    gy, y = (torch.randn((3, s, s, s, 64), generator=g, device=device)
+             .to(torch.bfloat16).permute(0, 4, 1, 2, 3) for _ in range(2))
+    y.masked_fill_(y.abs() < 0.05, 0.0)
+    stem.reset_launches()
+    got = stem._mask_launch(gy, y)
+    torch.cuda.synchronize()
+    assert stem.launches == {"critic_stem": 0, "critic_stem_backward": 0,
+                             "critic_stem_mask": 1}
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.equal(got, stem.mask_plain(gy, y))
 
 
 def _step(net, device):
@@ -114,7 +135,8 @@ def test_k6_launches_in_a_shapehd_fine_tuning_step(device):
     decoder's last layer (2, 128, 16³) and the stem's backward (2, 64,
     16³)."""
     launches, k3 = _step("shapehd", device)
-    assert launches == {"critic_stem": 1, "critic_stem_backward": 1}
+    assert launches == {"critic_stem": 1, "critic_stem_backward": 1,
+                        "critic_stem_mask": 1}
     assert k3 == {(2, 128, 16): 1, (2, 64, 16): 1}
 
 
@@ -122,4 +144,5 @@ def test_no_k6_in_a_wgangp_step(device):
     """A WGAN-GP step launches neither K6 nor its backward: its critic
     trains in D's phase and reads bf16 G(z) in G's."""
     launches, _ = _step("wgangp", device)
-    assert launches == {"critic_stem": 0, "critic_stem_backward": 0}
+    assert launches == {"critic_stem": 0, "critic_stem_backward": 0,
+                        "critic_stem_mask": 0}

@@ -511,9 +511,11 @@ def test_critic_stem_matches_plain(device, b, r):
     with torch.inference_mode():
         out = stem.critic_stem(v, w)
         torch.cuda.synchronize()
-        assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 0}
+        assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 0,
+                                 "critic_stem_mask": 0}
         assert out.shape == (b, 64, r // 2, r // 2, r // 2)
-        assert out.dtype == torch.bfloat16 and out.is_contiguous()
+        assert out.dtype == torch.bfloat16 and out.is_contiguous(
+            memory_format=torch.channels_last_3d)
         with torch.autocast("cuda", dtype=torch.bfloat16):
             plain = stem.critic_stem_plain(v, w)
         vb, wb = (t.to(torch.bfloat16).double() for t in (v, w))
@@ -559,10 +561,12 @@ def test_critic_score_on_k6_against_cudnn(device):
         with torch.inference_mode():
             k6, _ = _critic_last_input(net, v)
         torch.cuda.synchronize()
-        assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 0}
+        assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 0,
+                                 "critic_stem_mask": 0}
         ref, last = _critic_last_input(net, v)
         torch.cuda.synchronize()
-        assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 0}
+        assert stem.launches == {"critic_stem": 1, "critic_stem_backward": 0,
+                                 "critic_stem_mask": 0}
     w = getattr(net, f"Conv3D_{net.n_mid}").Conv_0.weight.detach()
     with torch.no_grad():
         scale = torch.nn.functional.conv3d(
@@ -611,7 +615,8 @@ def test_critic_stem_launches_in_shapehd_predict_step(device, tmp_path):
     stem.reset_launches()
     pred = model.predict_step(batch)
     torch.cuda.synchronize()
-    assert stem.launches == {"critic_stem": 2, "critic_stem_backward": 0}
+    assert stem.launches == {"critic_stem": 2, "critic_stem_backward": 0,
+                             "critic_stem_mask": 0}
     assert all(bool(torch.isfinite(pred[k]).all())
                for k in ("is_real", "is_real_noft"))
     net_d = model.net_d.requires_grad_(True)
@@ -619,4 +624,5 @@ def test_critic_stem_launches_in_shapehd_predict_step(device, tmp_path):
     with torch.autocast("cuda", dtype=torch.bfloat16):
         net_d(v).sum().backward()
     torch.cuda.synchronize()
-    assert stem.launches == {"critic_stem": 2, "critic_stem_backward": 0}
+    assert stem.launches == {"critic_stem": 2, "critic_stem_backward": 0,
+                             "critic_stem_mask": 0}

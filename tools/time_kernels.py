@@ -21,6 +21,17 @@ kernel's bound.  Each result is held against the plain version first.
               checked and built by ``chip_smoke.critic_stem_row``, beside
               ``critic_stem_plain`` under bf16 autocast and bf16
               ``F.conv3d`` with ``F.leaky_relu``
+  critic_stem_mask
+              K6's backward mask at the fine-tuning cell's (64, 64, 64^3),
+              checked (bit for bit) and built by
+              ``chip_smoke.critic_stem_mask_row``, beside ``mask_plain``
+              on the channels-last tensors and ``leaky_relu_backward`` on
+              channels-first ones
+  critic_conv K7 ``critic_conv`` at the ShapeHD cell's four shapes, batch
+              128 (``chip_smoke.CRITIC_CONV_SHAPES``), checked and built by
+              ``chip_smoke.critic_conv_row``, beside ``critic_conv_plain``
+              under bf16 autocast and bf16 ``F.conv3d`` with
+              ``F.leaky_relu`` on NCDHW and on channels_last_3d tensors
   k4          K4 ``nn_min_dist`` at 8 x 8192 x 8192 and at the scoring
               path's 1 x 1024 x 1024 (rtol 1e-4, atol 1e-5)
   stage2_host the host's time to return from one call of the renderer's
@@ -144,18 +155,49 @@ def k3_slab(cs, dev, g, flush, args, timed):
     return out
 
 
-def critic_stem(cs, dev, g, flush, args, timed):
+def _timed_row(cs, row, name, flush, args, timed):
+    """A ``chip_smoke`` row's call, plain version and library call timed,
+    beside its bound; the call's kernels named ``name`` timed on the card
+    later."""
     import torch
-    row = cs.critic_stem_row(dev, 128, 17)
     fn = row.pop("call")
     row["bound_ms"], row["bound_by"], _ = row.pop("bound")
-    timed["critic_stem"] = (fn, "critic_stem")
+    timed[name] = (fn, name)
     with torch.inference_mode():
         for key, f in (("ms", fn), ("plain_ms", row.pop("plain")),
                        ("library_ms", row.pop("library"))):
             row[key] = cs.time_ms(f, flush, args.reps)
     row["bound_share"] = row["bound_ms"] / row["ms"]
-    return {"critic_stem": row}
+    return {name: row}
+
+
+def critic_stem(cs, dev, g, flush, args, timed):
+    return _timed_row(cs, cs.critic_stem_row(dev, 128, 17), "critic_stem",
+                      flush, args, timed)
+
+
+def critic_stem_mask(cs, dev, g, flush, args, timed):
+    return _timed_row(cs, cs.critic_stem_mask_row(dev, 64, 64, 23),
+                      "critic_stem_mask", flush, args, timed)
+
+
+def critic_conv(cs, dev, g, flush, args, timed):
+    import torch
+    out = {}
+    for cin, r, cout in cs.CRITIC_CONV_SHAPES:
+        row = cs.critic_conv_row(dev, 128, cin, r, cout, 19 + r)
+        fn = row.pop("call")
+        row["bound_ms"], row["bound_by"], _ = row.pop("bound")
+        key = f"critic_conv_{cin}x{r}_{cout}"
+        timed[key] = (fn, "critic_conv")
+        with torch.inference_mode():
+            for k, f in (("ms", fn), ("plain_ms", row.pop("plain")),
+                         ("library_ms", row.pop("library")),
+                         ("library_cl_ms", row.pop("library_cl"))):
+                row[k] = cs.time_ms(f, flush, args.reps)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        out[key] = row
+    return out
 
 
 def k4(cs, dev, g, flush, args, timed):
@@ -263,6 +305,7 @@ def k3_host(cs, dev, g, flush, args, timed):
 
 KERNELS = {"k3_f32": k3_f32, "k3_bf16": k3_bf16, "k3_slab": k3_slab,
            "k3_host": k3_host, "critic_stem": critic_stem,
+           "critic_stem_mask": critic_stem_mask, "critic_conv": critic_conv,
            "k4": k4, "stage2_host": stage2_host}
 
 
